@@ -1,0 +1,85 @@
+"""Helpers for the port's parity tests: one proposal slot through the
+candidate stage, with the coarse corners exchangeable between the two
+packages.
+
+The candidate stage's corner refinement is not continuous in its start: a
+gradient-peak argmax per edge sample decides which taps a line fit uses.
+The coarse corners come from atan2/sin/cos and long sums, which the two
+libraries round differently in the last bit, so a 1-ulp difference there can
+move a refined corner by tenths of a pixel in either package.  These helpers
+let a test hold the continuous part (coarse corners) and the discontinuous
+part (refinement from one and the same start) each to a tight tolerance.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from apse_uav_tpu.aruco import detector as jdet
+from apse_uav_torch.aruco import detector as tdet
+
+
+def slot_psize(h: int, w: int, k: int) -> int:
+    """Patch size of proposal slot k (the static per-scale grouping)."""
+    return next(ps for a, b, ps in tdet._patch_groups(h, w, tdet.DetectorParams()) if a <= k < b)
+
+
+def reference_coarse(gray: np.ndarray, center, size, psize: int):
+    """The reference's clockwise coarse corners (4, 2) yx in window coords
+    for one slot of the (H, W) gray, and its window (win, win)."""
+    p = jdet.DetectorParams()
+    center = jnp.asarray(center, jnp.float32)
+    patch, origin = jdet._extract_patch(jnp.asarray(gray, jnp.float32), center, psize)
+    win, _, _ = jdet._extract_window(patch, center - origin, jnp.float32(size), p.window)
+    dark, _, _ = jdet._binarize(win)
+    coarse, _ = jdet._coarse_corners(jdet._largest_component(dark, p.window), win, p.window)
+    return np.asarray(jdet._order_clockwise(coarse)), win
+
+
+def port_candidate(gray: np.ndarray, center, size, psize: int, coarse_w: np.ndarray | None = None):
+    """The port's candidate stage for one slot, exactly as ``candidates``
+    runs it, optionally restarted from the given clockwise coarse corners.
+
+    Returns (corners (4, 2) x,y image coords, decoded id, the clockwise coarse
+    corners (4, 2) yx window coords that the refinement started from).
+    """
+    p = tdet.DetectorParams()
+    g = torch.as_tensor(np.asarray(gray, np.float32))[None]
+    c = torch.as_tensor(np.asarray(center, np.float32))
+    patch, p_origin = tdet._extract_patch(g, c[None, None], psize)
+    patch, p_origin = patch.reshape(1, psize, psize), p_origin.reshape(1, 2)
+    win, scale, origin = tdet._extract_window(patch, c[None] - p_origin, torch.tensor([float(size)]), p.window)
+    dark, _, _ = tdet._binarize(win)
+    coarse, _ = tdet._coarse_corners(tdet._largest_component(dark, p.window), win, p.window)
+    coarse_w = tdet._order_clockwise(coarse) if coarse_w is None else torch.tensor(np.asarray(coarse_w))[None]
+    rough_w, _ = tdet._refine_edges(win, coarse_w, p.edge_points, torch.ones_like(scale), step_scale=1.04, n_taps=11)
+    drift0 = torch.linalg.vector_norm(rough_w - coarse_w, dim=-1).amax(dim=-1)
+    rough_w = torch.where((drift0 < 6.0)[:, None, None], rough_w, coarse_w)
+    rough = origin[:, None, :] + (rough_w + 0.5) * scale[:, None, None]
+    refined, _ = tdet._refine_edges(patch, rough, p.edge_points, scale, step_scale=0.8)
+    good = torch.linalg.vector_norm(refined - rough, dim=-1).amax(dim=-1) < 6.0
+    corners = torch.where(good[:, None, None], refined, rough)
+    marker_id, rot, _, _ = tdet._decode_candidate(patch, corners, p)
+    corners = torch.roll(corners[0] + p_origin[0], -int(rot[0]), dims=0)
+    return corners.flip(-1).numpy(), int(marker_id[0]), coarse_w[0].numpy()
+
+
+def corner_errors(gray: np.ndarray, center, size, k: int, got: np.ndarray, want: np.ndarray) -> dict:
+    """Errors, in px, of the port's corners ``got`` (4, 2) x,y of proposal
+    slot k against the reference's ``want``:
+
+    * ``direct``: got against want;
+    * ``coarse``: the port's coarse corners against the reference's (window px);
+    * ``restarted``: the port restarted from the reference's coarse corners,
+      against want;
+    * ``replay``: this module's replay of the port's stage against got.
+    """
+    h, w = gray.shape
+    ps = slot_psize(h, w, k)
+    coarse_ref, _ = reference_coarse(gray, center, size, ps)
+    own, _, coarse_port = port_candidate(gray, center, size, ps)
+    restarted, _, _ = port_candidate(gray, center, size, ps, coarse_ref)
+    return {"direct": float(np.abs(got - want).max()), "coarse": float(np.abs(coarse_port - coarse_ref).max()),
+            "restarted": float(np.abs(restarted - want).max()), "replay": float(np.abs(own - got).max())}
