@@ -7,6 +7,10 @@ CUDA tensor it launches the kernels (integral image, scores, dilation, NMS
 + per-block top-k) and finishes like the reference's XLA epilogue: a global
 top-k per scale over the blocks' candidates, centres from ``off_px``.
 
+The kernel has ``decimate=False`` semantics, as the reference's does; it raises
+on ``decimate=True`` (:func:`apse_uav_torch.aruco.detector.proposals` runs
+that branch in plain PyTorch).
+
 Contract with the plain version: the same valid candidate set per scale,
 scores within 5e-4.  Both sum the integral image exactly in float64 and
 divide with IEEE divisions, so in practice the scores agree bit for bit;
@@ -34,6 +38,9 @@ def proposals_from_pool(pool: torch.Tensor, h: int, w: int, p: DetectorParams):
         raise ValueError(f"pool must be (B, h4, w4) float32, got {tuple(pool.shape)} {pool.dtype}")
     if pool.device.type == "cpu":
         return _proposals_from_pool(pool, h, w, p)
+    if p.decimate:
+        raise ValueError("the proposals kernel has decimate=False semantics; decimate=True runs in plain "
+                         "PyTorch (detector.proposals)")
     st = p.proposal_stride
     h4, w4 = h // st, w // st
     k = p.per_scale_k

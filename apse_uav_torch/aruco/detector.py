@@ -1,12 +1,15 @@
 """Fixed-shape ArUco detector in PyTorch (proposals + candidate stage).
 
-Counterpart of the JAX reference's ``aruco/detector.py`` with ``decimate=False``
-(the shipped setting).  Everything is batched: frames on a leading ``B``
-axis, candidates on a ``(B, K)`` slot grid, so the whole candidate stage is
-a fixed sequence of tensor ops whatever the data.
+Counterpart of the JAX reference's ``aruco/detector.py``.  Everything is
+batched: frames on a leading ``B`` axis, candidates on a ``(B, K)`` slot
+grid, so the whole candidate stage is a fixed sequence of tensor ops
+whatever the data.
 
-* :func:`_proposals_from_pool` is the plain version of kernel K2
-  (``csrc/proposals.cu`` via :mod:`.cuda_proposals`).
+* :func:`_proposals_from_pool` with ``decimate=False`` (the shipped setting)
+  is the plain version of kernel K2 (``csrc/proposals.cu`` via
+  :mod:`.cuda_proposals`).  With ``decimate=True`` it scores the larger scales
+  on a mean pyramid, as the reference does in XLA; no kernel implements that
+  branch, so :func:`proposals` runs it in plain PyTorch on every device.
 * :func:`_label_sweeps` is the plain version of kernel K1
   (``csrc/labeling.cu`` via :mod:`.cuda_labeling`).
 
@@ -25,6 +28,7 @@ import torch
 
 from apse_uav_torch.aruco import dictionary as dict_mod
 from apse_uav_torch.core.ops import div_const
+from apse_uav_torch.device import resolve_device
 
 _SQRT2 = 1.41421356
 
@@ -46,6 +50,9 @@ class DetectorParams:
     edge_points: int = 24
     error_correction_rate: float = 2.0
     max_border_errors: float = 0.35
+    # Scale-proportional score-map decimation (see _decimation); off in the
+    # shipped configuration.
+    decimate: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -53,16 +60,38 @@ class DetectorParams:
 # ---------------------------------------------------------------------------
 
 
+def _decimation(s: int, st: int, enable: bool = True) -> int:
+    """Pyramid level (a power of 2) that scores scale s: the largest grid
+    decimation keeping the origin stride <= s/8 px (1 without decimation)."""
+    if not enable:
+        return 1
+    q = 1
+    while q * 2 * 8 * st <= s:
+        q *= 2
+    return q
+
+
+def _level_shape(h4: int, w4: int, q: int) -> tuple[int, int]:
+    """The pooled grid (h4, w4) halved, rounding up, down to pyramid level q."""
+    lq = 1
+    while lq < q:
+        h4, w4 = -(-h4 // 2), -(-w4 // 2)
+        lq *= 2
+    return h4, w4
+
+
 def _kept_scales(h: int, w: int, p: DetectorParams) -> tuple:
-    """The static per-frame-size scale ladder (undecimated grid)."""
+    """The static per-frame-size scale ladder (shared by the proposals and the
+    candidate stage's patch grouping)."""
     min_side = p.min_marker_perimeter_rate * max(h, w) / 4.0
     scales = tuple(int(s) for s in p.scales if s >= min_side / 1.5) or (int(p.scales[-1]),)
     scales = tuple(s for s in scales if int(round(s * 1.8)) < min(h, w))
-    h4, w4 = h // p.proposal_stride, w // p.proposal_stride
+    st = p.proposal_stride
     kept = []
     for s in scales:
-        _, _, sc_ring = _box_sides(s, p.proposal_stride)
-        if sc_ring < min(h4, w4):
+        q = _decimation(s, st, p.decimate)
+        _, _, sc_ring = _box_sides(s, st * q)
+        if sc_ring < min(_level_shape(h // st, w // st, q)):
             kept.append(s)
     return tuple(kept)
 
@@ -78,8 +107,8 @@ def _box_sides(s: int, unit: int) -> tuple[int, int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class ScalePlan:
-    """Static box geometry of one scale on the pooled grid (shared by the
-    plain version and the K2 kernel)."""
+    """Static box geometry of one scale on its pyramid level's grid (shared by
+    the plain version and the K2 kernel, which takes level 1 only)."""
 
     size: int
     sc_in: int
@@ -90,25 +119,30 @@ class ScalePlan:
     n_y: int  # valid score rows / cols (top-left anchored)
     n_x: int
     r_d: int  # dilation radius, cells
-    off_px: float  # candidate centre offset added to pos * stride
+    off_px: float  # candidate centre offset added to pos * unit
+    q: int  # pyramid level (grid decimation of the pooled grid)
+    unit: int  # px per grid cell: proposal_stride * q
 
 
 def scale_plans(h: int, w: int, p: DetectorParams) -> tuple:
     st = p.proposal_stride
-    h4, w4 = h // st, w // st
     plans = []
     for s in _kept_scales(h, w, p):
-        sc_in, sc_mid, sc_ring = _box_sides(s, st)
+        q = _decimation(s, st, p.decimate)
+        unit = st * q
+        ny_q, nx_q = _level_shape(h // st, w // st, q)
+        sc_in, sc_mid, sc_ring = _box_sides(s, unit)
         off_in = (sc_ring - sc_in) // 2
         off_mid = (sc_ring - sc_mid) // 2
-        n_y_i, n_x_i = h4 - sc_in + 1, w4 - sc_in + 1
-        n_y_m, n_x_m = h4 - sc_mid + 1, w4 - sc_mid + 1
-        n_y_r, n_x_r = h4 - sc_ring + 1, w4 - sc_ring + 1
+        n_y_i, n_x_i = ny_q - sc_in + 1, nx_q - sc_in + 1
+        n_y_m, n_x_m = ny_q - sc_mid + 1, nx_q - sc_mid + 1
+        n_y_r, n_x_r = ny_q - sc_ring + 1, nx_q - sc_ring + 1
         n_y = min(n_y_r, n_y_i - 2 * off_in if off_in else n_y_i, n_y_m - 2 * off_mid if off_mid else n_y_m)
         n_x = min(n_x_r, n_x_i - 2 * off_in if off_in else n_x_i, n_x_m - 2 * off_mid if off_mid else n_x_m)
         plans.append(ScalePlan(
             size=s, sc_in=sc_in, sc_mid=sc_mid, sc_ring=sc_ring, off_in=off_in, off_mid=off_mid,
-            n_y=n_y, n_x=n_x, r_d=max(-(-s // (2 * st)), 1), off_px=off_in * st + sc_in * st / 2.0,
+            n_y=n_y, n_x=n_x, r_d=max(-(-s // (2 * unit)), 1), off_px=off_in * unit + sc_in * unit / 2.0,
+            q=q, unit=unit,
         ))
     return tuple(plans)
 
@@ -147,16 +181,17 @@ def _dilate_sq(a: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(shape)
 
 
-def candidates_from_scores(vals: torch.Tensor, idx: torch.Tensor, w4: int, plans, p: DetectorParams):
-    """Per-scale top-k (B, S, k) values and flat grid indices -> the
-    detector's proposal tuple (centers (B,K,2) yx, sizes, scores, valid)."""
+def candidates_from_scores(vals: torch.Tensor, idx: torch.Tensor, nx: int, plans, p: DetectorParams):
+    """Per-scale top-k (B, S, k) values and flat indices into the plans'
+    (shared) level grid of width nx -> the detector's proposal tuple
+    (centers (B,K,2) yx, sizes, scores, valid)."""
     b, ns, k = vals.shape
-    st = p.proposal_stride
-    iy = torch.div(idx, w4, rounding_mode="floor").to(torch.float32)
-    ix = (idx % w4).to(torch.float32)
+    iy = torch.div(idx, nx, rounding_mode="floor").to(torch.float32)
+    ix = (idx % nx).to(torch.float32)
     offs = torch.tensor([e.off_px for e in plans], dtype=torch.float32, device=vals.device)[None, :, None]
-    cy = (iy * st + offs).reshape(b, -1)
-    cx = (ix * st + offs).reshape(b, -1)
+    units = torch.tensor([float(e.unit) for e in plans], dtype=torch.float32, device=vals.device)[None, :, None]
+    cy = (iy * units + offs).reshape(b, -1)
+    cx = (ix * units + offs).reshape(b, -1)
     sizes = torch.tensor([float(e.size) for e in plans], dtype=torch.float32, device=vals.device)
     sizes = sizes[None, :, None].expand(b, ns, k).reshape(b, -1)
     vals = vals.reshape(b, -1)
@@ -175,11 +210,45 @@ def integral_image(pool: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(ii, (1, 0, 1, 0))
 
 
+def _pyramid(pool: torch.Tensor, max_q: int) -> dict:
+    """Mean pyramid {q: (B, h_q, w_q)} of the pooled frame: each level the
+    2x2 mean of the one below, edge-padded to even sizes first."""
+    levels = {1: pool}
+    q = 1
+    while q < max_q:
+        prev = levels[q]
+        b, ph, pw = prev.shape
+        pp = torch.nn.functional.pad(prev[:, None], (0, pw % 2, 0, ph % 2), mode="replicate")[:, 0]
+        levels[2 * q] = pp.reshape(b, pp.shape[1] // 2, 2, pp.shape[2] // 2, 2).mean(dim=(2, 4))
+        q *= 2
+    return levels
+
+
+def _to_level(src: torch.Tensor, src_q: int, dst_q: int, dst_shape: tuple[int, int]) -> torch.Tensor:
+    """A dilated (B, h, w) score map resampled between adjacent pyramid
+    levels: max-pool to a coarser level, nearest upsample to a finer one,
+    cropped or -inf padded to the destination grid."""
+    if src_q < dst_q:
+        r = dst_q // src_q
+        m = torch.nn.functional.pad(src, (0, -src.shape[2] % r, 0, -src.shape[1] % r), value=-math.inf)
+        m = m.reshape(m.shape[0], m.shape[1] // r, r, m.shape[2] // r, r).amax(dim=(2, 4))
+    elif src_q > dst_q:
+        r = src_q // dst_q
+        m = src.repeat_interleave(r, dim=1).repeat_interleave(r, dim=2)
+    else:
+        m = src
+    dh, dw = dst_shape
+    m = m[:, :dh, :dw]
+    return torch.nn.functional.pad(m, (0, dw - m.shape[2], 0, dh - m.shape[1]), value=-math.inf)
+
+
 def _proposals_from_pool(pool: torch.Tensor, h: int, w: int, p: DetectorParams):
     """Top-K dark-square candidates from the stride-pooled gray (B, h4, w4) f32.
 
     Returns centers (B, K, 2) yx, sizes (B, K), scores (B, K), valid (B, K),
-    K = per_scale_k * n_scales, slots per scale in ladder order.
+    K = per_scale_k * n_scales, slots per scale in ladder order.  Each scale
+    is scored on its pyramid level (level 1, the pooled grid itself, for
+    every scale unless ``p.decimate``).
     """
     st = p.proposal_stride
     h4, w4 = h // st, w // st
@@ -187,38 +256,70 @@ def _proposals_from_pool(pool: torch.Tensor, h: int, w: int, p: DetectorParams):
     # Mean-centre before the integral image (f32 cancellation control; the
     # shift cancels exactly in the outer-inner contrast).
     pool = pool - pool.mean(dim=(1, 2), keepdim=True)
-    ii = integral_image(pool)
+    plans = scale_plans(h, w, p)
+    levels = _pyramid(pool, max(e.q for e in plans))
+    integrals = {q: integral_image(im) for q, im in levels.items()}
 
-    def box(oy: int, ox: int, sz: int, ny: int, nx: int):
+    def box(ii, oy: int, ox: int, sz: int, ny: int, nx: int):
         """Box sums of side sz at origins (oy + i, ox + j), i < ny, j < nx."""
         return (ii[:, oy + sz: oy + sz + ny, ox + sz: ox + sz + nx] - ii[:, oy + sz: oy + sz + ny, ox: ox + nx]
                 - ii[:, oy: oy + ny, ox + sz: ox + sz + nx] + ii[:, oy: oy + ny, ox: ox + nx])
 
-    plans = scale_plans(h, w, p)
     scores, dils = [], []
     for e in plans:
-        inner = div_const(box(e.off_in, e.off_in, e.sc_in, e.n_y, e.n_x), float(e.sc_in * e.sc_in))
-        mid = box(e.off_mid, e.off_mid, e.sc_mid, e.n_y, e.n_x)
-        ring = box(0, 0, e.sc_ring, e.n_y, e.n_x)
+        ii = integrals[e.q]
+        inner = div_const(box(ii, e.off_in, e.off_in, e.sc_in, e.n_y, e.n_x), float(e.sc_in * e.sc_in))
+        mid = box(ii, e.off_mid, e.off_mid, e.sc_mid, e.n_y, e.n_x)
+        ring = box(ii, 0, 0, e.sc_ring, e.n_y, e.n_x)
         outer = div_const(ring - mid, float(e.sc_ring * e.sc_ring) - float(e.sc_mid * e.sc_mid))
         contrast = torch.clamp(outer - inner, min=0.0)
         sc = torch.where(contrast >= p.min_white_black_diff, div_const(contrast, 255.0), torch.zeros_like(contrast))
-        full = torch.zeros((pool.shape[0], h4, w4), dtype=torch.float32, device=pool.device)
+        full = torch.zeros(levels[e.q].shape, dtype=torch.float32, device=pool.device)
         full[:, : e.n_y, : e.n_x] = sc
         scores.append(full)
         dils.append(_dilate_sq(full, e.r_d))
 
     # Adjacent-scale non-max suppression.
     masked = []
-    for si, sc in enumerate(scores):
+    for si, (e, sc) in enumerate(zip(plans, scores)):
         cross = dils[si]
         for sj in (si - 1, si + 1):
             if 0 <= sj < len(scores):
-                cross = torch.maximum(cross, dils[sj])
+                cross = torch.maximum(cross, _to_level(dils[sj], plans[sj].q, e.q, sc.shape[1:]))
         is_max = (sc >= cross) & (sc > p.score_threshold)
         masked.append(torch.where(is_max, sc, torch.zeros_like(sc)).reshape(pool.shape[0], -1))
-    vals, idx = _top_k_grouped(torch.stack(masked, dim=1), p.per_scale_k)
-    return candidates_from_scores(vals, idx, w4, plans, p)
+
+    # Top-k per scale, batched per pyramid level (the ladder is monotone in q).
+    outs = []
+    a = 0
+    while a < len(plans):
+        b = a
+        while b < len(plans) and plans[b].q == plans[a].q:
+            b += 1
+        vals, idx = _top_k_grouped(torch.stack(masked[a:b], dim=1), p.per_scale_k)
+        outs.append(candidates_from_scores(vals, idx, levels[plans[a].q].shape[2], plans[a:b], p))
+        a = b
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def pool_gray(gray: torch.Tensor, st: int) -> torch.Tensor:
+    """Mean-pool (B, H, W) gray by the proposal stride -> (B, H//st, W//st)
+    f32 (the reference's _pool_gray; sums of st*st u8 values are exact)."""
+    b, h, w = gray.shape
+    h4, w4 = h // st, w // st
+    g = gray[:, : h4 * st, : w4 * st].to(torch.float32).reshape(b, h4, st, w4, st).sum(dim=(2, 4))
+    return div_const(g, float(st * st))
+
+
+def proposals(pool: torch.Tensor, h: int, w: int, p: DetectorParams):
+    """Proposal slots of the pooled gray: kernel K2 (plain on the CPU), or,
+    with ``p.decimate``, the pyramid in plain PyTorch on every device (the
+    reference computes it in XLA; no kernel implements it)."""
+    if p.decimate:
+        return _proposals_from_pool(pool, h, w, p)
+    from apse_uav_torch.aruco import cuda_proposals
+
+    return cuda_proposals.proposals_from_pool(pool, h, w, p)
 
 
 # ---------------------------------------------------------------------------
@@ -669,3 +770,27 @@ def candidates(gray: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor, s
     suppressed = (overlap & better & (ids[:, None, :] >= 0)).any(dim=2)
     ids = torch.where(suppressed, torch.full_like(ids, -1), ids)
     return torch.stack([corners[..., 1], corners[..., 0]], dim=-1), ids
+
+
+class ArucoDetector:
+    """Fixed-shape ArUco detector on one device (cuda unless asked for cpu).
+
+    ``detect(gray)`` takes (H, W) or (B, H, W) gray on that device and returns
+    corners (..., K, 4, 2) x,y and ids (..., K) (-1 = none), K proposal
+    slots: pool, proposals (K2), the candidate stage (K1).
+    """
+
+    def __init__(self, params: DetectorParams | None = None, device="cuda"):
+        self.params = params or DetectorParams()
+        self.device = resolve_device(device)
+
+    def detect(self, gray: torch.Tensor):
+        if gray.device != self.device:
+            raise ValueError(f"gray is on {gray.device}, the detector on {self.device}")
+        if gray.dim() not in (2, 3):
+            raise ValueError(f"gray must be (H, W) or (B, H, W), got {tuple(gray.shape)}")
+        p = self.params
+        g3 = gray[None] if gray.dim() == 2 else gray
+        h, w = g3.shape[1:]
+        corners, ids = candidates(g3, *proposals(pool_gray(g3, p.proposal_stride), h, w, p), p)
+        return (corners[0], ids[0]) if gray.dim() == 2 else (corners, ids)

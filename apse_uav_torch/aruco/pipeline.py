@@ -1,14 +1,16 @@
 """End-to-end ArUco measurement pipeline: batched front + temporal scan.
 
-Counterpart of the JAX reference's ``aruco/pipeline.py`` for the shipped two-pass
-configuration:
+Counterpart of the JAX reference's ``aruco/pipeline.py``:
 
-* **front** (batched over frames): 4x4 pool of the source, kernel K3 on the
-  pooled camera, proposals (K2), candidate-driven tile selection, K4 on the
-  selected full-resolution tiles, the candidate stage (with K1), per-id slots
-  and unit-length planar pose for both ambiguity basins.  On the CPU the
-  plain versions run and the full-resolution gray covers the whole frame, as
-  the reference's CPU path does.
+* **front** (batched over frames).  Two-pass (the shipped configuration):
+  4x4 pool of the source (K5), kernel K3 on the pooled camera, proposals
+  (K2), candidate-driven tile selection, K4 on the selected full-resolution
+  tiles, the candidate stage (with K1).  Single-pass (``two_pass=False``):
+  K3 over the whole full-resolution frame, then :class:`ArucoDetector`
+  (pool, K2, the candidate stage with K1).  Then per-id slots and
+  unit-length planar pose for both ambiguity basins.  On the CPU the plain
+  versions run and the full-resolution gray covers the whole frame, as the
+  reference's CPU path does.
 * **scan**: the reference's per-frame state machine (DIFF_MAX gating,
   marker-size rings, altitude fallback, LEDs, distances) as a Python loop
   over frames with the same carry semantics.
@@ -24,12 +26,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from apse_uav_torch.aruco import cuda_proposals, detector as det, geometry as geo, patch_select
+from apse_uav_torch.aruco import detector as det, geometry as geo, patch_select
 from apse_uav_torch.aruco.detector import DetectorParams
 from apse_uav_torch.aruco.pose import estimate_pose_single_markers_two
 from apse_uav_torch.core import camera, rotation
 from apse_uav_torch.device import resolve_device
-from apse_uav_torch.preproc import cuda_remap, remap, twopass
+from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +126,6 @@ class ArucoPipeline:
     def __init__(self, mtx, dist, size_wh, cfg: ArucoPipelineConfig | None = None,
                  detector_params: DetectorParams | None = None, device="cuda"):
         self.cfg = cfg or ArucoPipelineConfig()
-        if not self.cfg.two_pass:
-            raise NotImplementedError("only the two-pass front is ported (single-pass is queued)")
         self.device = resolve_device(device)
         mtx = np.asarray(mtx, np.float64)
         dist = np.asarray(dist, np.float64).reshape(-1)
@@ -136,16 +136,18 @@ class ArucoPipeline:
         self.dist = camera.pad_dist_coeffs(dist, device=self.device)
         self.size_wh = tuple(size_wh)
         self.params = detector_params or DetectorParams()
+        self.detector = det.ArucoDetector(self.params, device=self.device)
         w, h = self.size_wh
-        st = self.params.proposal_stride
-        wp, hp = twopass.pooled_frame_size(w, h, st)
-        self._pooled_hw = (hp, wp)
-        self._pooled_tiles = remap.pick_tiles(wp, hp)
         self._sel_th, self._sel_tw = remap.pick_tiles(w, h)
-        mtx_p = torch.as_tensor(twopass.pooled_camera(mtx, st), dtype=torch.float32, device=self.device)
-        self.map_pooled = camera.undistort_rectify_map(mtx_p, self.dist, (wp, hp), tilt=self.tilt)
         self.map_full = camera.undistort_rectify_map(self.mtx, self.dist, (w, h), tilt=self.tilt)
-        self._groups = tuple(det._patch_groups(h, w, self.params))
+        if self.cfg.two_pass:
+            st = self.params.proposal_stride
+            wp, hp = twopass.pooled_frame_size(w, h, st)
+            self._pooled_hw = (hp, wp)
+            self._pooled_tiles = remap.pick_tiles(wp, hp)
+            mtx_p = torch.as_tensor(twopass.pooled_camera(mtx, st), dtype=torch.float32, device=self.device)
+            self.map_pooled = camera.undistort_rectify_map(mtx_p, self.dist, (wp, hp), tilt=self.tilt)
+            self._groups = tuple(det._patch_groups(h, w, self.params))
 
     # -- stateless front ----------------------------------------------------
 
@@ -157,12 +159,16 @@ class ArucoPipeline:
         if frames.device != self.device:
             raise ValueError(f"frames are on {frames.device}, the pipeline on {self.device}")
         frames = frames.contiguous()
+        if not self.cfg.two_pass:
+            gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw)  # K3, full res
+            corners, ids = self.detector.detect(gray)  # K2, K1 inside
+            return self._front_from_detections(gray, corners, ids)
         p = self.params
         st = p.proposal_stride
-        pooled_src = twopass.pool_source_u8(frames, st, self._pooled_hw)
+        pooled_src = cuda_pool.pool_source(frames, st, self._pooled_hw)  # K5
         pooled_gray = cuda_remap.remap_gray(pooled_src, self.map_pooled, *self._pooled_tiles)  # K3
         pool = pooled_gray[:, : h // st, : w // st].to(torch.float32)
-        centers, sizes, scores, valid = cuda_proposals.proposals_from_pool(pool, h, w, p)  # K2
+        centers, sizes, scores, valid = det.proposals(pool, h, w, p)  # K2
         sel, covered = patch_select.select_tiles_batched(
             centers, valid, h=h, w=w, th=self._sel_th, tw=self._sel_tw, groups=self._groups,
             t_sel=self.cfg.sel_tile_budget, per_scale_k=p.per_scale_k,

@@ -2,9 +2,10 @@
 
 Flags and CSV schemas are those of the JAX reference's ``cli/aruco_detect.py``
 (images ``image_%04d.png``, the cam_params.json format, the DCNN centroid
-CSV, both result schemas), plus ``--device cuda|cpu``.  ``cuda`` raises when
-no card is visible; it never falls back to the CPU.  TF32 is switched off
-for matmuls and cuDNN so that the geometry stays in full float32.
+CSV, both result schemas, annotated images with ``--save_images``), plus
+``--device cuda|cpu``.  ``cuda`` raises when no card is visible; it never
+falls back to the CPU.  TF32 is switched off for matmuls and cuDNN so that
+the geometry stays in full float32.
 
 Usage:
     python -m apse_uav_torch.cli.aruco_detect \
@@ -29,6 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stop_frame", type=int, default=None)
     p.add_argument("--step_frame", type=int, default=1)
     p.add_argument("--save_results", action="store_true")
+    p.add_argument("--save_images", action="store_true")
     p.add_argument("--use_centroid_data", action="store_true")
     p.add_argument("--N_avg", type=int, default=1)
     p.add_argument("--LEDs_threshold", type=float, default=None)
@@ -42,6 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--path_input_video", default=None)
     p.add_argument("--path_dcnn_data", default=None)
     p.add_argument("--path_output_results", default=None)
+    p.add_argument("--path_output_images", default=None)
     p.add_argument("--batch", type=int, default=8, help="frames per device batch")
     p.add_argument("--width", type=int, default=3840)
     p.add_argument("--height", type=int, default=2160)
@@ -88,6 +91,49 @@ def _frame_reader(args):
             video.release()
 
 
+def _annotate(frame: np.ndarray, row: dict) -> np.ndarray:
+    """Draw detections + measurements onto the frame (the JAX CLI's
+    annotation, the reference's printDataOnImage / drawLinesOnImage in
+    spirit)."""
+    import cv2
+
+    img = frame.copy()
+    font = cv2.FONT_HERSHEY_SIMPLEX
+    corners = row["corners"]  # (4 slots, 4, 2) xy
+    detected = row["detected"]
+    centers = []
+    for v in range(4):
+        if not detected[v]:
+            centers.append(None)
+            continue
+        quad = corners[v].astype(np.int32)
+        cv2.polylines(img, [quad.reshape(-1, 1, 2)], True, (0, 255, 0), 2)
+        c = quad.mean(axis=0).astype(int)
+        centers.append(c)
+        cv2.putText(img, f"id {v + 1}", tuple(c + np.array([6, -6])), font, 0.9, (0, 255, 255), 2)
+    host = centers[3]
+    if host is not None:
+        for v in range(3):
+            if centers[v] is None:
+                continue
+            cv2.line(img, tuple(host), tuple(centers[v]), (255, 128, 0), 2)
+            mid = ((host + centers[v]) // 2).astype(int)
+            cv2.putText(img, f"{row['dist_aruco'][v]:.2f} m", tuple(mid), font, 0.9, (255, 128, 0), 2)
+        cv2.putText(
+            img,
+            f"alt {row['altitude']:.1f} m  L {row['marker_length']:.3f}  LEDs {int(row['leds'])}",
+            (20, 40), font, 1.0, (255, 255, 255), 2,
+        )
+    return img
+
+
+def _save_annotated(out_dir: str, k: int, frame: np.ndarray, row: dict) -> None:
+    import cv2
+
+    os.makedirs(out_dir, exist_ok=True)
+    cv2.imwrite(os.path.join(out_dir, f"image_{k:04d}.png"), _annotate(frame, row))
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not args.use_images and not args.use_video:
@@ -128,9 +174,12 @@ def main(argv=None) -> int:
         carry, out = pipe.process(batch, carry, first=first, centroid_rows=crows)
         first = False
         out = {key: val.cpu().numpy() for key, val in out.items() if key != "gray"}
-        if writer is not None:
-            for i, k in enumerate(ks):
-                writer.write_frame(k, {key: val[i] for key, val in out.items()})
+        for i, k in enumerate(ks):
+            row = {key: val[i] for key, val in out.items()}
+            if writer is not None:
+                writer.write_frame(k, row)
+            if args.save_images and args.path_output_images:
+                _save_annotated(args.path_output_images, k, frames[i], row)
         n_frames += len(ks)
 
     try:

@@ -33,9 +33,6 @@ def _from_dict(cls, d: dict, tpu_only: set):
 
 def detector_params(d: dict) -> DetectorParams:
     """Port DetectorParams from ``dataclasses.asdict`` of the JAX one."""
-    d = dict(d)
-    if d.pop("decimate", False):
-        raise NotImplementedError("decimate=True proposals are not ported (the shipped setting is False)")
     return _from_dict(DetectorParams, d, _TPU_DETECTOR_FIELDS)
 
 

@@ -1,13 +1,16 @@
 """Wrappers of kernels K3/K4 (``csrc/remap.cu``): fused remap + LAB gamma + gray.
 
 Replace the JAX reference's ``preproc/pallas_remap.py``: K3 is its full-grid mode
-(``_fused_preproc_packed_impl``), K4 its selected-tile mode
-(``_fused_preproc_selected``).  The reference's i32 byte packing, span
-buckets and window DMA are TPU layout artefacts and are not ported: the
-kernel takes planar u8 ``(B, 3, H, W)`` frames and the port's float32 map.
+(``_fused_preproc_packed_impl``), with its ``want_rgb`` output as
+:func:`remap_rgb_gray`; K4 its selected-tile mode (``_fused_preproc_selected``).
+The reference's i32 byte packing, span buckets and window DMA are TPU layout
+artefacts and are not ported: the kernel takes u8 frames, planar
+``(B, 3, H, W)`` or, in the RGB mode, HWC ``(B, H, W, 3)``, and the port's
+float32 map.
 
 On a CPU tensor each wrapper runs the plain version
-(:func:`apse_uav_torch.preproc.remap.remap_gray_u8`); on a CUDA tensor it
+(:func:`apse_uav_torch.preproc.remap.remap_gray_u8`,
+:func:`apse_uav_torch.preproc.remap.remap_rgb_gray_u8`); on a CUDA tensor it
 launches the kernel or raises.
 """
 
@@ -18,10 +21,13 @@ import ctypes
 import torch
 
 from apse_uav_torch import _build
-from apse_uav_torch.preproc.remap import remap_gray_u8
+from apse_uav_torch.preproc.remap import remap_gray_u8, remap_rgb_gray_u8
 
 K3 = "remap_full"
+K3_RGB = "remap_full_rgb"
 K4 = "remap_selected"
+# Output tile of the RGB mode; it masks the overhang, so any frame size works.
+RGB_TILE = (8, 128)
 
 
 def _check(src: torch.Tensor, map_xy: torch.Tensor, th: int, tw: int) -> None:
@@ -86,3 +92,49 @@ def remap_gray_selected(src: torch.Tensor, map_xy: torch.Tensor, sel: torch.Tens
         _launch(src, map_xy, out, sel, th, tw, sel.shape[1], gamma)
         _build.count(K4)
     return out
+
+
+def remap_rgb_gray(src: torch.Tensor, map_xy: torch.Tensor, gamma: float = 2.0, hwc: bool = False,
+                   with_gray: bool = True):
+    """K3's RGB mode: the undistorted, gamma-corrected image and its gray.
+
+    src (B, 3, H, W) u8, or (B, H, W, 3) with ``hwc``, in any strides ->
+    (rgb in src's layout, (B, Ho, Wo) u8 gray or None).
+    """
+    if src.dtype != torch.uint8 or src.dim() != 4 or src.shape[3 if hwc else 1] != 3:
+        layout = "(B, H, W, 3)" if hwc else "(B, 3, H, W)"
+        raise ValueError(f"src must be {layout} uint8, got {tuple(src.shape)} {src.dtype}")
+    if map_xy.dtype != torch.float32 or map_xy.dim() != 3 or map_xy.shape[2] != 2:
+        raise ValueError(f"map_xy must be (Ho, Wo, 2) float32, got {tuple(map_xy.shape)} {map_xy.dtype}")
+    if map_xy.device != src.device:
+        raise ValueError("src and map_xy must be on the same device")
+    if src.device.type == "cpu":
+        rgb, gray = remap_rgb_gray_u8(src, map_xy, gamma, hwc=hwc)
+        return rgb, gray if with_gray else None
+    if not map_xy.is_contiguous():
+        raise ValueError("remap_rgb_gray needs a contiguous map_xy")
+    b = src.shape[0]
+    ho, wo = map_xy.shape[:2]
+    if hwc:
+        h, w = src.shape[1:3]
+        rgb = torch.empty((b, ho, wo, 3), dtype=torch.uint8, device=src.device)
+        sb, sr, sx, sc = src.stride()
+        rb, rr, rx, rc = rgb.stride()
+    else:
+        h, w = src.shape[2:]
+        rgb = torch.empty((b, 3, ho, wo), dtype=torch.uint8, device=src.device)
+        sb, sc, sr, sx = src.stride()
+        rb, rc, rr, rx = rgb.stride()
+    gray = torch.empty((b, ho, wo), dtype=torch.uint8, device=src.device) if with_gray else None
+    if rgb.numel() == 0:
+        return rgb, gray
+    fn = _build.load("remap").remap_rgb_gray_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    err = fn(_build.ptr(src), sb, sc, sr, sx, _build.ptr(map_xy), _build.ptr(rgb), rb, rc, rr, rx,
+             _build.ptr(gray) if gray is not None else None, b, h, w, ho, wo, *RGB_TILE, float(gamma),
+             _build.stream_ptr(src.device))
+    _build.check(err, "remap_kernel (RGB mode)")
+    _build.count(K3_RGB)
+    return rgb, gray

@@ -1,10 +1,11 @@
-"""Undistort (bilinear remap) + LAB gamma + gray in plain PyTorch.
+"""Undistort (bilinear remap) + LAB gamma + gray.
 
-Counterpart of the JAX reference's ``preproc/remap.py`` and the plain version of
-kernels K3/K4 (``csrc/remap.cu``, wrapped by :mod:`.cuda_remap`).  Frames are
-planar u8 ``(B, 3, H, W)`` in the reference's stored (BGR) order; the map is
-the float32 ``(Ho, Wo, 2)`` source position of every output pixel
-(:func:`apse_uav_torch.core.camera.undistort_rectify_map`).
+Counterpart of the JAX reference's ``preproc/remap.py`` (:class:`Preprocessor`)
+and the plain version of kernels K3/K4 (``csrc/remap.cu``, wrapped by
+:mod:`.cuda_remap`).  Frames are u8 in the reference's stored (BGR) order,
+planar ``(B, 3, H, W)`` on the ArUco path and HWC ``(B, H, W, 3)`` at
+:class:`Preprocessor`; the map is the float32 ``(Ho, Wo, 2)`` source position
+of every output pixel (:func:`apse_uav_torch.core.camera.undistort_rectify_map`).
 
 Border semantics match cv2.remap's BORDER_CONSTANT(0): taps outside the
 source contribute 0.  The blend is written one op per rounding, in the same
@@ -13,9 +14,11 @@ order as the kernel, so the kernel's output can be held to it bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from apse_uav_torch.core import camera, colorspace
+from apse_uav_torch.device import resolve_device
 
 
 def pick_tiles(width: int, height: int) -> tuple[int, int]:
@@ -79,10 +82,58 @@ def remap_gray_u8(src: torch.Tensor, map_xy: torch.Tensor, gamma: float = 2.0) -
     return colorspace.bgr_to_gray_u8(colorspace.gamma_correct_u8(und, gamma=gamma))
 
 
+def remap_rgb_gray_u8(src: torch.Tensor, map_xy: torch.Tensor, gamma: float = 2.0, hwc: bool = False):
+    """Plain K3 RGB mode: undistort + LAB gamma -> (rgb in src's layout, gray).
+
+    src (B, 3, H, W) u8, or (B, H, W, 3) with ``hwc``; gray (B, Ho, Wo) u8."""
+    planar = src.permute(0, 3, 1, 2) if hwc else src
+    rgb = colorspace.gamma_correct_u8(bilinear_remap_u8(planar, map_xy).permute(0, 2, 3, 1), gamma=gamma)
+    gray = colorspace.bgr_to_gray_u8(rgb)
+    return (rgb if hwc else rgb.permute(0, 3, 1, 2).contiguous()), gray
+
+
+class Preprocessor:
+    """Undistort + LAB gamma (+ gray) of HWC frames, binding the camera.
+
+    Counterpart of the reference's ``Preprocessor`` (the preprocessing that
+    ``track_uav --preprocess`` feeds to the DCNN tracker).  The map is built
+    once, on ``device``.  On the card each call is one launch of kernel K3's
+    RGB mode on the HWC frames as they are; on the CPU the plain chain runs.
+
+    Example:
+        pre = Preprocessor.from_json("data/cam_params.json", (3840, 2160))
+        frames_out, gray = pre(frames_u8)   # (B, H, W, 3), (B, H, W)
+    """
+
+    def __init__(self, mtx, dist, size_wh: tuple[int, int], gamma: float = 2.0, device="cuda"):
+        self.device = resolve_device(device)
+        dist = np.asarray(dist, np.float64).reshape(-1)
+        if self.device.type == "cuda":
+            check_no_tilt(dist)  # the kernel path draws the reference kernel's line
+        self.size_wh = tuple(size_wh)
+        self.gamma = float(gamma)
+        mtx_t = torch.as_tensor(np.asarray(mtx, np.float64), dtype=torch.float32, device=self.device)
+        self.map_xy = camera.undistort_rectify_map(mtx_t, camera.pad_dist_coeffs(dist, device=self.device),
+                                                   self.size_wh, tilt=camera.has_tilt(dist))
+
+    @classmethod
+    def from_json(cls, path: str, size_wh: tuple[int, int], gamma: float = 2.0, device="cuda"):
+        mtx, dist = camera.load_camera_params(path)
+        return cls(mtx, dist, size_wh, gamma, device)
+
+    def __call__(self, frames: torch.Tensor, with_gray: bool = True):
+        """frames (B, H, W, 3) or (H, W, 3) u8 -> (out of the same shape, gray (B, H, W) / (H, W) u8 or None)."""
+        from apse_uav_torch.preproc import cuda_remap
+
+        if frames.dim() == 3:
+            out, gray = self(frames[None], with_gray)
+            return out[0], (None if gray is None else gray[0])
+        if frames.device != self.device:
+            raise ValueError(f"frames are on {frames.device}, the preprocessor on {self.device}")
+        return cuda_remap.remap_rgb_gray(frames, self.map_xy, self.gamma, hwc=True, with_gray=with_gray)
+
+
 def preprocess_frames(frames: torch.Tensor, mtx, dist, size_wh: tuple[int, int], gamma: float = 2.0):
-    """Undistort + gamma-correct planar frames; returns ((B, H, W, 3), (B, H, W)) u8."""
-    mtx_t = torch.as_tensor(mtx, dtype=torch.float32, device=frames.device)
-    dist_t = camera.pad_dist_coeffs(dist, device=frames.device)
-    map_xy = camera.undistort_rectify_map(mtx_t, dist_t, size_wh)
-    out = colorspace.gamma_correct_u8(bilinear_remap_u8(frames, map_xy).permute(0, 2, 3, 1), gamma=gamma)
-    return out, colorspace.bgr_to_gray_u8(out)
+    """Undistort + gamma-correct planar frames (B, 3, H, W) through
+    :class:`Preprocessor`; returns ((B, H, W, 3), (B, H, W)) u8."""
+    return Preprocessor(mtx, dist, size_wh, gamma, device=frames.device)(frames.permute(0, 2, 3, 1))

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from apse_uav_torch.aruco.dictionary import marker_image
+from apse_uav_torch.device import resolve_device
 
 MARKER_LEN = 0.55
 LED_OFFSETS = (
@@ -62,13 +63,15 @@ def _undistort(xd: torch.Tensor, yd: torch.Tensor, dist, num_iters: int = 25):
 
 def render_scene(mtx, dist, size_wh: tuple[int, int], markers: list[MarkerSpec], altitude: float = 40.0,
                  cam_yaw_deg: float = 0.0, supersample: int = 2, distorted: bool = True,
-                 device="cpu") -> torch.Tensor:
-    """Render a (H, W, 3) uint8 capture of markers on the ground plane.
+                 device="cuda") -> torch.Tensor:
+    """Render a (H, W, 3) uint8 capture of markers on the ground plane, on
+    ``device`` (cuda unless the caller asks for cpu).
 
     The camera sits at (0, 0, altitude) looking straight down with yaw
     ``cam_yaw_deg``; with ``distorted`` the image is the raw capture (the
     input that preprocessing undistorts).
     """
+    device = resolve_device(device)
     w, h = size_wh
     ss = supersample
     f64 = dict(dtype=torch.float64, device=device)

@@ -40,6 +40,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import apse_uav_torch, apse_uav_torch.aruco.pipeline, apse_uav_torch.cli.aruco_detect\n"
         "import apse_uav_torch.convert, apse_uav_torch.utils.synthetic, apse_uav_torch.utils.csv_io\n"
+        "import apse_uav_torch.preproc.cuda_pool, apse_uav_torch.preproc.cuda_remap\n"
+        "from apse_uav_torch.preproc.remap import Preprocessor\n"
+        "from apse_uav_torch.aruco.detector import ArucoDetector\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'apse_uav_tpu'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -62,13 +65,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_cuda_request_raises_instead_of_falling_back(cam):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the no-fallback rule is exercised on the CPU-only host")
+    from apse_uav_torch.aruco.detector import ArucoDetector
     from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
     from apse_uav_torch.cli.aruco_detect import main
+    from apse_uav_torch.preproc.remap import Preprocessor
+    from apse_uav_torch.utils.synthetic import render_scene
 
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         ArucoPipeline(*cam, (960, 544))  # the default device is cuda
+    with pytest.raises(RuntimeError, match="cuda"):
+        ArucoPipeline(*cam, (960, 544), ArucoPipelineConfig(two_pass=False))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ArucoDetector()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Preprocessor(*cam, (960, 544))
+    with pytest.raises(RuntimeError, match="cuda"):
+        render_scene(*cam, (32, 16), [])
     with pytest.raises(RuntimeError, match="cuda"):
         init_carry(ArucoPipelineConfig())
     with pytest.raises(RuntimeError, match="cuda"):
@@ -198,7 +212,9 @@ def test_convert_configs_and_camera_from_jax(cam):
     assert dp.per_scale_k == 5 and dp.scales == JDetectorParams().scales
     cfg = convert.pipeline_config(dataclasses.asdict(JConfig(n_avg=3, leds_threshold=200.0, led_bias_px=(0.4, 0.5))))
     assert (cfg.n_avg, cfg.leds_threshold, cfg.led_bias_px, cfg.two_pass) == (3, 200.0, (0.4, 0.5), True)
-    with pytest.raises(NotImplementedError):
-        convert.detector_params(dataclasses.asdict(JDetectorParams(decimate=True)))
+    dec = convert.detector_params(dataclasses.asdict(JDetectorParams(decimate=True, pallas_proposals=True)))
+    assert dec.decimate and dataclasses.asdict(dec) == {
+        k: v for k, v in dataclasses.asdict(JDetectorParams(decimate=True)).items()
+        if k not in ("pallas_proposals", "pallas_interpret", "pallas_labeling")}
     with pytest.raises(ValueError, match="no field"):
         convert.pipeline_config({**dataclasses.asdict(JConfig()), "new_option": 1})

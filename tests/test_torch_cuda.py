@@ -21,7 +21,7 @@ import torch
 from apse_uav_torch.aruco import cuda_labeling, cuda_proposals, detector as det
 from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
 from apse_uav_torch.core import camera
-from apse_uav_torch.preproc import cuda_remap, remap
+from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
 from apse_uav_torch.utils.synthetic import MarkerSpec, render_scene
 
 pytestmark = pytest.mark.cuda
@@ -132,6 +132,70 @@ def test_pipeline_cuda_matches_cpu(cam, frames):
     gpipe = ArucoPipeline(*cam, (W, H), cfg, device="cuda")
     cpipe = ArucoPipeline(*cam, (W, H), cfg, device="cpu")
     _, g = gpipe.process(frames, init_carry(cfg, "cuda"), first=True)
+    _, c = cpipe.process(frames.cpu(), init_carry(cfg, "cpu"), first=True)
+    for key in ("detected", "measured", "leds"):
+        assert torch.equal(g[key].cpu(), c[key]), key
+    assert c["measured"].all()
+    assert float((g["corners"].cpu() - c["corners"]).abs().max()) <= 0.05
+
+
+@pytest.mark.parametrize("shape", [(2, 3, H, W), (3, 3, 98, 132)], ids=["960x544", "132x98"])
+def test_pool_bit_identical(dev, shape):
+    """K5: every byte of the padded output equals the plain version's, pad
+    zeros included (the wrapper allocates with torch.empty, so the kernel
+    writes the pad), at the slice's size and at one whose height is not a
+    multiple of 4."""
+    gen = torch.Generator(device=dev).manual_seed(shape[2])
+    frames = torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+    b, c, h, w = shape
+    out_hw = twopass.pooled_frame_size(w, h, 4)[::-1]
+    got = cuda_pool.pool_source(frames, 4, out_hw)
+    torch.cuda.synchronize()
+    assert got.shape == (b, c, *out_hw)
+    assert torch.equal(got, twopass.pool_source_u8(frames, 4, out_hw))
+    assert not got[:, :, h // 4:].any() and not got[:, :, :, w // 4:].any()
+    with pytest.raises(ValueError):
+        cuda_pool.pool_source(frames[..., :-2], 4, out_hw)  # width not a multiple of 4
+    with pytest.raises(ValueError):
+        cuda_pool.pool_source(frames, 2, (h, w))  # the kernel pools by 4
+
+
+def test_remap_rgb_mode_bit_identical(dev, cam, frames):
+    """K3's RGB mode: RGB and gray bit-identical to the plain version on
+    planar input, on HWC input and on an HWC view of planar frames (strided,
+    no copy); its gray equals K3's gray-only launch (which, with K4, keeps
+    test_remap_full_and_selected's bit-identity)."""
+    mtx = torch.as_tensor(cam[0], dtype=torch.float32, device=dev)
+    map_xy = camera.undistort_rectify_map(mtx, camera.pad_dist_coeffs(cam[1], dev), (W, H))
+    rgb, gray = cuda_remap.remap_rgb_gray(frames, map_xy)
+    rgb_p, gray_p = remap.remap_rgb_gray_u8(frames, map_xy)
+    assert torch.equal(rgb, rgb_p) and torch.equal(gray, gray_p)
+    assert torch.equal(gray, cuda_remap.remap_gray(frames, map_xy, *remap.pick_tiles(W, H)))
+    hwc = frames.permute(0, 2, 3, 1)
+    for src in (hwc, hwc.contiguous()):
+        rgb_h, gray_h = cuda_remap.remap_rgb_gray(src, map_xy, hwc=True)
+        assert rgb_h.shape == (2, H, W, 3) and torch.equal(rgb_h, rgb.permute(0, 2, 3, 1))
+        assert torch.equal(gray_h, gray)
+    out, g = remap.Preprocessor(*cam, (W, H), device=dev)(hwc.contiguous(), with_gray=False)
+    assert g is None and torch.equal(out, rgb.permute(0, 2, 3, 1))
+    # Any frame size: the overhanging tiles are masked.
+    small = map_xy[:37, :201].contiguous()
+    rgb_s, gray_s = cuda_remap.remap_rgb_gray(frames, small)
+    rgb_sp, gray_sp = remap.remap_rgb_gray_u8(frames, small)
+    assert torch.equal(rgb_s, rgb_sp) and torch.equal(gray_s, gray_sp)
+
+
+def test_single_pass_cuda_matches_cpu(cam, frames):
+    """The single-pass front on the card (K3 full frame, K2, K1) against the
+    port on the CPU: same detections and LEDs, corners within 0.05 px."""
+    from apse_uav_torch import _build
+
+    cfg = ArucoPipelineConfig(two_pass=False)
+    gpipe = ArucoPipeline(*cam, (W, H), cfg, device="cuda")
+    cpipe = ArucoPipeline(*cam, (W, H), cfg, device="cpu")
+    _build.reset_counts()
+    _, g = gpipe.process(frames, init_carry(cfg, "cuda"), first=True)
+    assert all(_build.launches.get(n, 0) > 0 for n in (cuda_labeling.NAME, cuda_proposals.NAME, cuda_remap.K3))
     _, c = cpipe.process(frames.cpu(), init_carry(cfg, "cpu"), first=True)
     for key in ("detected", "measured", "leds"):
         assert torch.equal(g[key].cpu(), c[key]), key

@@ -1,5 +1,6 @@
-"""PyTorch port, detector: labeling (plain K1), proposals (plain K2), tile
-selection and the candidate stage against the JAX package on the CPU."""
+"""PyTorch port, detector: labeling (plain K1), proposals (plain K2 and the
+decimated pyramid), tile selection, the candidate stage and ArucoDetector
+against the JAX package on the CPU."""
 
 import os
 
@@ -38,6 +39,13 @@ def gray():
     _, g = jremap.preprocess_frames(jnp.asarray(img[None]), jnp.asarray(ms, jnp.float32),
                                     jnp.asarray(dist, jnp.float32), (W, H))
     return np.asarray(g)
+
+
+@pytest.fixture(scope="module")
+def jax_detect(gray):
+    """The reference detector on that gray: corners (K, 4, 2) x,y, ids (K,)."""
+    cj, ij = jdet.ArucoDetector(jdet.DetectorParams()).detect(jnp.asarray(gray))
+    return np.asarray(cj)[0], np.asarray(ij)[0]
 
 
 def _masks():
@@ -131,7 +139,7 @@ def test_select_tiles_matches_jax(t_sel):
         assert cov_t.sum() < torch.from_numpy(valid).sum()
 
 
-def test_candidate_stage_matches_jax(gray):
+def test_candidate_stage_matches_jax(gray, jax_detect):
     """The full detector on the same gray: the same decoded ids, and every
     marker's corners within 0.05 px of the reference's -- directly, or once
     the port restarts its refinement from the reference's own coarse
@@ -140,10 +148,8 @@ def test_candidate_stage_matches_jax(gray):
     start (test_reference_refinement_moves_with_its_start), so those ulps
     can move a refined corner by tenths of a pixel; from one and the same
     start the two refinements agree."""
-    p = jdet.DetectorParams()
     tp = tdet.DetectorParams()
-    cj, ij = jdet.ArucoDetector(p).detect(jnp.asarray(gray))
-    cj, ij = np.asarray(cj)[0], np.asarray(ij)[0]
+    cj, ij = jax_detect
     g = torch.from_numpy(gray)
     pool = g.to(torch.float32).reshape(1, H // 4, 4, W // 4, 4).mean(dim=(2, 4))
     props = cuda_proposals.proposals_from_pool(pool, H, W, tp)
@@ -182,3 +188,55 @@ def test_reference_refinement_moves_with_its_start(gray):
         moves.append(float(np.abs(refine(coarse_port) - refine(coarse_ref)).max()))
     moves.sort()
     assert moves[-1] > 0.1 and moves[-2] <= 0.01, moves
+
+
+def test_detector_detect_matches_jax(gray, jax_detect):
+    """ArucoDetector.detect on the CPU, on (H, W) and on (B, H, W) gray,
+    against the reference's ArucoDetector.detect: the same decoded ids, and
+    the port's output is bit for bit its staged path (pool, proposals,
+    candidate stage), whose corners test_candidate_stage_matches_jax holds
+    within 0.05 px of the reference's (directly or restarted from the
+    reference's coarse corners)."""
+    tp = tdet.DetectorParams()
+    detector = tdet.ArucoDetector(tp, device="cpu")
+    g = torch.from_numpy(gray)
+    corners, ids = detector.detect(g)
+    one_corners, one_ids = detector.detect(g[0])
+    assert corners.shape == (1, *one_corners.shape) and torch.equal(corners[0], one_corners)
+    assert torch.equal(ids[0], one_ids)
+    pool = tdet.pool_gray(g, tp.proposal_stride)
+    assert torch.equal(pool, g.to(torch.float32).reshape(1, H // 4, 4, W // 4, 4).mean(dim=(2, 4)))
+    assert np.array_equal(pool[0].numpy(), np.asarray(jdet._pool_gray(jnp.asarray(gray[0]), 4)))
+    staged = tdet.candidates(g, *cuda_proposals.proposals_from_pool(pool, H, W, tp), tp)
+    assert torch.equal(staged[0], corners) and torch.equal(staged[1], ids)
+    _, ij = jax_detect
+    assert set(ids[0][ids[0] >= 0].tolist()) == set(ij[ij >= 0].tolist()) >= {1, 2, 3, 4}
+    with pytest.raises(ValueError):
+        detector.detect(g[0, 0])
+
+
+def test_decimated_proposals_match_jax(gray):
+    """decimate=True: the pyramid, per-level integrals and cross-level NMS of
+    the reference's _proposals_from_pool, in plain PyTorch: the same valid
+    candidate set per scale, scores within 5e-4; the same scale ladder and
+    patch groups.  The kernel wrapper refuses decimate=True on the card."""
+    p = jdet.DetectorParams(decimate=True)
+    tp = tdet.DetectorParams(decimate=True)
+    pool = np.asarray(jdet._pool_gray(jnp.asarray(gray[0]), p.proposal_stride))
+    want = [np.asarray(x) for x in jax.jit(lambda a: jdet._proposals_from_pool(a, H, W, p))(jnp.asarray(pool))]
+    got = [x[0].numpy() for x in tdet.proposals(torch.from_numpy(pool[None]), H, W, tp)]
+    assert got[0].shape == want[0].shape
+    assert len({e.q for e in tdet.scale_plans(H, W, tp)}) > 1  # the pyramid is in use
+    k = p.per_scale_k
+    n_valid = 0
+    for a in range(0, want[1].shape[0], k):
+        sl = slice(a, a + k)
+        ours = {(float(c[0]), float(c[1]), float(s)): float(v) for c, s, v, ok in zip(*(x[sl] for x in got)) if ok}
+        theirs = {(float(c[0]), float(c[1]), float(s)): float(v) for c, s, v, ok in zip(*(x[sl] for x in want)) if ok}
+        assert set(ours) == set(theirs), (a // k, ours, theirs)
+        assert all(abs(ours[key] - theirs[key]) < 5e-4 for key in ours)
+        n_valid += len(ours)
+    assert n_valid >= 4
+    for size in ((960, 544), (3840, 2160), (320, 180)):
+        assert tdet._kept_scales(size[1], size[0], tp) == jdet._kept_scales(size[1], size[0], p)
+        assert tdet._patch_groups(size[1], size[0], tp) == jdet._patch_groups(size[1], size[0], p)

@@ -1,6 +1,6 @@
-"""PyTorch port, the slice end to end: the two-pass ArUco measurement
-pipeline on the CPU against the JAX pipeline (XLA path), resuming from a JAX
-carry, the altitude fallback, and the port's CLI."""
+"""PyTorch port, the slice end to end: the two-pass and the single-pass ArUco
+measurement pipeline on the CPU against the JAX pipeline (XLA path), resuming
+from a JAX carry, the altitude fallback, and the port's CLI."""
 
 import json
 import os
@@ -102,6 +102,35 @@ def test_slice_matches_jax(jax_run, port_run):
         assert err[:, [0, 2]].max() <= 0.01 and err[:, 1].max() <= 0.05, (key, err)
     np.testing.assert_allclose(got["altitude"], want["altitude"], atol=1e-3)
     np.testing.assert_allclose(got["marker_length"], want["marker_length"], atol=1e-6)
+
+
+def test_single_pass_matches_jax(cam, sequence):
+    """ArucoPipeline(two_pass=False) on the CPU (full-resolution gray, then
+    ArucoDetector) against the JAX pipeline with use_pallas_preproc=False,
+    two_pass=False, end to end, at test_slice_matches_jax's tolerances and for
+    the same reason (marker 2 reads a gray a few levels apart on ~4e-5 of the
+    pixels; measured 2.82 px and 3.8 cm on it, at most 1.2e-3 px and 1e-5 m
+    on the others)."""
+    ms, dist = cam
+    jcfg = JConfig(use_pallas_preproc=False, two_pass=False)
+    jpipe = JPipeline(ms, dist, (W, H), jcfg)
+    firsts = jnp.zeros(5, bool).at[0].set(True)
+    _, want = jpipe.scan(jinit(jcfg), jpipe.front(jnp.asarray(sequence)), firsts, jnp.zeros((5, 17), jnp.int32))
+    want = {k: np.asarray(v) for k, v in want.items()}
+    cfg = ArucoPipelineConfig(two_pass=False)
+    pipe = ArucoPipeline(ms, dist, (W, H), cfg, device="cpu")
+    assert not hasattr(pipe, "map_pooled")
+    _, got = pipe.process(torch.from_numpy(sequence), init_carry(cfg, "cpu"), first=True)
+    got = {k: v.numpy() for k, v in got.items()}
+    for key in ("detected", "measured", "leds"):
+        assert np.array_equal(got[key], want[key]), key
+    assert (got["leds"] == LEDS).all() and got["measured"].all()
+    corner_err = np.abs(got["corners"] - want["corners"]).max(axis=(2, 3))  # (T, 4): ids 1-4
+    assert corner_err[:, [0, 2, 3]].max() <= 0.05 and corner_err[:, 1].max() <= 3.0, corner_err
+    for key in ("dist_aruco", "dist_aruco_bbox"):
+        err = np.abs(got[key] - want[key])  # (T, 3): vehicles 1-3
+        assert err[:, [0, 2]].max() <= 0.01 and err[:, 1].max() <= 0.05, (key, err)
+    np.testing.assert_allclose(got["altitude"], want["altitude"], atol=1e-3)
 
 
 def test_slice_on_reference_gray(cam, sequence, jax_run):
@@ -275,9 +304,11 @@ def test_altitude_fallback_on_host_gate_failure(cam, jax_run):
     assert np.array_equal(out["detected"].numpy(), np.asarray(want["detected"]))
 
 
-def test_cli_smoke(cam, sequence, port_run, tmp_path):
+@pytest.mark.parametrize("save_images", [False, True], ids=["csv", "images"])
+def test_cli_smoke(cam, sequence, port_run, tmp_path, save_images):
     """The port's CLI on the CPU writes the reference's 16-column CSV with
-    the pipeline's detections."""
+    the pipeline's detections and, with --save_images, one annotated PNG per
+    frame (the JAX CLI's annotation)."""
     from apse_uav_torch.cli.aruco_detect import main
 
     ms, dist = cam
@@ -288,12 +319,24 @@ def test_cli_smoke(cam, sequence, port_run, tmp_path):
     cam_path = tmp_path / "cam.json"
     cam_path.write_text(json.dumps({"mtx": ms.tolist(), "dist": dist.reshape(-1, 1).tolist()}))
     out_csv = tmp_path / "out.csv"
+    out_img = tmp_path / "annotated"
     rc = main([
         "--path_camera_params", str(cam_path), "--use_images", "--path_input_images", str(img_dir),
         "--save_results", "--path_output_results", str(out_csv), "--width", str(W), "--height", str(H),
         "--batch", "3", "--device", "cpu",
+        *(["--save_images", "--path_output_images", str(out_img)] if save_images else []),
     ])
     assert rc == 0
+    if save_images:
+        for t, f in enumerate(sequence):
+            img = cv2.imread(str(out_img / ("image_%04d.png" % (t + 1))))
+            assert img.shape == (H, W, 3)
+            drawn = (img != f.transpose(1, 2, 0)).any(axis=-1)
+            assert drawn.mean() > 1e-3  # quads, labels and distance lines
+            green = (img[..., 0] == 0) & (img[..., 1] == 255) & (img[..., 2] == 0)
+            assert green.sum() > 100  # the detected quads' outlines
+    else:
+        assert not out_img.exists()
     lines = out_csv.read_text().strip().split("\n")
     assert lines[0].startswith("frame_ID ,ID_4_detected ,markerLength")
     assert len(lines) == 1 + len(sequence)

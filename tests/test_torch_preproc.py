@@ -1,6 +1,7 @@
-"""PyTorch port, preprocessing: pool, remap + LAB gamma + gray (the plain
-versions of kernels K3/K4), tile grid and renderer, against the JAX package
-on the CPU."""
+"""PyTorch port, preprocessing: pool (kernel K5's wrapper on CPU tensors),
+remap + LAB gamma + gray (the plain versions of kernels K3/K4 and of K3's RGB
+mode), Preprocessor, tile grid and renderer, against the JAX package on the
+CPU."""
 
 import os
 
@@ -14,10 +15,11 @@ from apse_uav_tpu.preproc import remap as jremap, twopass as jtp
 from apse_uav_tpu.preproc.pallas_remap import _pick_tiles
 from apse_uav_tpu.utils import synthetic as jsyn
 from apse_uav_torch.core import camera as tcam
-from apse_uav_torch.preproc import cuda_remap, remap as tremap, twopass as ttp
+from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap as tremap, twopass as ttp
 from apse_uav_torch.utils import synthetic as tsyn
 
 W, H = 960, 544
+REPO = os.path.join(os.path.dirname(__file__), "..")
 SPECS = [
     (4, (0.0, 0.5), 5, 0b10110010),
     (1, (-4.0, -2.0), 30, None),
@@ -129,7 +131,145 @@ def test_renderer_matches_jax(cam):
     specs_j = [jsyn.MarkerSpec(i, xy, yaw, leds=leds) for i, xy, yaw, leds in SPECS]
     specs_t = [tsyn.MarkerSpec(i, xy, yaw, leds=leds) for i, xy, yaw, leds in SPECS]
     want = jsyn.render_scene(mtx, dist, (w, h), specs_j, altitude=6.0)
-    got = tsyn.render_scene(mtx, dist, (w, h), specs_t, altitude=6.0).numpy()
+    got = tsyn.render_scene(mtx, dist, (w, h), specs_t, altitude=6.0, device="cpu").numpy()
     d = np.abs(got.astype(int) - want.astype(int))
     assert d.max() <= 1 and (d > 0).mean() <= 1e-3, ((d > 0).mean(), d.max())
     assert (want < 100).sum() > 50  # the markers are in view
+
+
+@pytest.fixture(scope="module")
+def packed_pool():
+    """test_pallas_pool's setting: two random 1280x736 frames, their packed
+    source and the full-res and pooled plans' geometry (plans built without
+    the on-disk cache)."""
+    from apse_uav_tpu.preproc.pallas_remap import PallasPreprocessor, build_remap_plan
+
+    w, h = 1280, 736
+    mtx, dist = jcam.load_camera_params(os.path.join(REPO, "data", "cam_params.json"))
+    mtx = np.asarray(mtx) * np.array([[w / 3840, 1, w / 3840], [1, h / 2160, h / 2160], [1, 1, 1.0]])
+    wp, hp = jtp.pooled_frame_size(w, h, 4)
+    mtx_p = jtp.pooled_camera(np.asarray(mtx, np.float64), 4)
+    pre = PallasPreprocessor(mtx, dist, (w, h), want_rgb=False, plan=build_remap_plan(mtx, dist, (w, h), cache=False))
+    plan_p = build_remap_plan(mtx_p, dist, (wp, hp), cache=False, valid_wh=(w // 4, h // 4))
+    pre_p = PallasPreprocessor(mtx_p, dist, (wp, hp), want_rgb=False, plan=plan_p)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 3, h, w), np.uint8)
+    return frames, pre.host_pack(frames), pre.dims, pre_p.dims
+
+
+@pytest.mark.parametrize("route", ["xla", pytest.param("pallas_interpret", marks=pytest.mark.slow)])
+def test_pool_wrapper_matches_jax_packed_pool(packed_pool, route):
+    """K5's wrapper on a CPU tensor against the reference's packed pool --
+    its XLA chain (twopass.pool_packed_to_packed, which test_pallas_pool pins
+    to K5) or K5 itself in interpret mode -- bit for bit: the packed output
+    unpacked to planar u8 with a numpy view, its core against the port's
+    pooled frame, and every pad byte zero on both sides."""
+    import jax
+
+    from apse_uav_tpu.preproc.pallas_pool import pool_packed_to_packed_pallas
+
+    frames, packed, dims, dims_p = packed_pool
+    b, _, h, w = frames.shape
+    h4, w4 = h // 4, w // 4
+    if route == "xla":
+        want = jax.jit(lambda pk: jtp.pool_packed_to_packed(pk, dims, h, w, dims_p))(jnp.asarray(packed))
+    else:
+        want = pool_packed_to_packed_pallas(jnp.asarray(packed), dims, h, w, dims_p, interpret=True)
+    planar = np.asarray(want).view(np.uint8).reshape(b, 3, dims_p.padded_h, dims_p.padded_w)
+    core = (slice(None), slice(None), slice(dims_p.pad_y, dims_p.pad_y + h4), slice(dims_p.pad_x, dims_p.pad_x + w4))
+    hp, wp = ttp.pooled_frame_size(w, h, 4)[::-1]
+    got = cuda_pool.pool_source(torch.from_numpy(frames), 4, (hp, wp)).numpy()
+    assert got.shape == (b, 3, hp, wp) and got.dtype == np.uint8
+    assert np.array_equal(got[:, :, :h4, :w4], planar[core])
+    assert not got[:, :, h4:].any() and not got[:, :, :, w4:].any()
+    pad = planar.copy()
+    pad[core] = 0
+    assert not pad.any()
+
+
+@pytest.mark.parametrize("batch", [True, False], ids=["batch", "single"])
+def test_preprocessor_matches_jax(cam, frames, batch):
+    """Preprocessor on the CPU against the reference's Preprocessor, RGB and
+    gray, on the batch of rendered frames and on one frame, with and without
+    gray.
+
+    Equal except for the LAB chain's documented differences (XLA:CPU's FMAs
+    and pow, see test_torch_core's colorspace census): measured on these
+    frames 38 of 1,044,480 pixels (3.6e-5; 4.2e-5 on the first frame alone),
+    by at most 3 levels, in RGB and in gray alike.  Pinned: at most 5e-5 of
+    the pixels, at most 4 levels.
+    """
+    ms, dist = cam
+    hwc = np.ascontiguousarray(frames.transpose(0, 2, 3, 1))
+    src = hwc if batch else hwc[0]
+    jpre = jremap.Preprocessor(ms, dist, (W, H))
+    tpre = tremap.Preprocessor(ms, dist, (W, H), device="cpu")
+    rgb_j, gray_j = (np.asarray(x) for x in jpre(jnp.asarray(src)))
+    rgb_t, gray_t = tpre(torch.from_numpy(src))
+    assert rgb_t.shape == rgb_j.shape == src.shape and gray_t.shape == gray_j.shape == src.shape[:-1]
+    assert rgb_t.dtype == gray_t.dtype == torch.uint8
+    d = np.abs(rgb_t.numpy().astype(int) - rgb_j.astype(int)).max(axis=-1)
+    dg = np.abs(gray_t.numpy().astype(int) - gray_j.astype(int))
+    assert (d > 0).mean() <= 5e-5 and d.max() <= 4, ((d > 0).mean(), d.max())
+    assert (dg > 0).mean() <= 5e-5 and dg.max() <= 4, ((dg > 0).mean(), dg.max())
+    rgb_n, gray_n = tpre(torch.from_numpy(src), with_gray=False)
+    rgb_jn, gray_jn = jpre(jnp.asarray(src), with_gray=False)
+    assert gray_n is None and gray_jn is None
+    assert torch.equal(rgb_n, rgb_t) and np.array_equal(np.asarray(rgb_jn), rgb_j)
+    # The wrapper of K3's RGB mode takes the plain version on CPU tensors, in
+    # either layout.
+    if batch:
+        t = torch.from_numpy(frames)
+        rgb_p, gray_p = cuda_remap.remap_rgb_gray(t, tpre.map_xy)
+        assert torch.equal(rgb_p, rgb_t.permute(0, 3, 1, 2)) and torch.equal(gray_p, gray_t)
+
+
+@pytest.mark.slow
+def test_preprocessor_matches_pallas_rgb_and_cv2():
+    """Preprocessor on the CPU against the reference's fused kernel with its
+    RGB output (PallasPreprocessor(want_rgb=True), interpret mode) and
+    against the OpenCV chain, at test_pallas_remap's 512x128.
+
+    The Pallas kernel evaluates pow and cbrt with its own approximations
+    (pallas_remap.py:521-585), so the reference's XLA chain itself differs
+    from it: on the rendered frame 1.36e-3 of the pixels, by up to 4 levels.
+    The port lands where XLA does (measured 1.40e-3, 4 levels).  Pinned on
+    the rendered frame: at most 2e-3 of the pixels, at most 4 levels.  The
+    cv2-chain bounds are test_pallas_remap's, on its sinusoidal image.
+    """
+    import cv2
+
+    from apse_uav_tpu.preproc.pallas_remap import PallasPreprocessor
+
+    h, w = 16 * 8, 256 * 2
+    mtx, dist = jcam.load_camera_params(os.path.join(REPO, "data", "cam_params.json"))
+    mtx = mtx.copy()
+    mtx[0] *= w / 3840.0
+    mtx[1] *= h / 2160.0
+    specs = [jsyn.MarkerSpec(4, (0.0, 0.5), 5, leds=0b10110010), jsyn.MarkerSpec(1, (-4.0, -1.0), 30),
+             jsyn.MarkerSpec(2, (4.0, 0.5), -20)]
+    scene = jsyn.render_scene(mtx, dist, (w, h), specs, altitude=8.0)
+    yy, xx = np.mgrid[0:h, 0:w]
+    sines = np.stack([128 + 100 * np.sin(xx / 17.0) * np.cos(yy / 23.0), 128 + 90 * np.cos(xx / 29.0 + 1.0),
+                      128 + 80 * np.sin(yy / 13.0 + 2.0)], -1).clip(0, 255).astype(np.uint8)
+    hwc = np.stack([scene, sines])
+    out, gray = PallasPreprocessor(mtx, dist, (w, h), interpret=True, want_rgb=True)(jnp.asarray(hwc.transpose(0, 3, 1, 2)))
+    out = np.asarray(out).transpose(0, 2, 3, 1).astype(int)
+    gray = np.asarray(gray).astype(int)
+    rgb_t, gray_t = tremap.Preprocessor(mtx, dist, (w, h), device="cpu")(torch.from_numpy(hwc))
+    rgb_t, gray_t = rgb_t.numpy().astype(int), gray_t.numpy().astype(int)
+    d = np.abs(rgb_t[0] - out[0]).max(axis=-1)
+    dg = np.abs(gray_t[0] - gray[0])
+    assert (d > 0).mean() <= 2e-3 and d.max() <= 4, ((d > 0).mean(), d.max())
+    assert (dg > 0).mean() <= 2e-3 and dg.max() <= 4, ((dg > 0).mean(), dg.max())
+
+    mapx, mapy = cv2.initUndistortRectifyMap(mtx, dist.reshape(-1, 1), None, mtx, (w, h), cv2.CV_32FC1)
+    ref = cv2.remap(sines, mapx, mapy, cv2.INTER_LINEAR)
+    lut = np.clip((np.arange(256) / 255.0) ** 2 * 255.0, 0, 255).astype(np.uint8)
+    lab = cv2.cvtColor(ref, cv2.COLOR_RGB2LAB)
+    lab[..., 0] = cv2.LUT(lab[..., 0], lut)
+    ref = cv2.cvtColor(lab, cv2.COLOR_LAB2RGB)
+    d = np.abs(rgb_t[1] - ref.astype(int))
+    dg = np.abs(gray_t[1] - cv2.cvtColor(ref, cv2.COLOR_BGR2GRAY).astype(int))
+    assert (d > 2).mean() < 0.02, ((d > 2).mean(), d.max())
+    assert (dg > 2).mean() < 0.01, ((dg > 2).mean(), dg.max())
+    assert (dg > 1).mean() < 0.05
