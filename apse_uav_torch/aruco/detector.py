@@ -22,6 +22,7 @@ summation order inside a matmul.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -181,6 +182,14 @@ def _dilate_sq(a: torch.Tensor, r: int) -> torch.Tensor:
     return x.reshape(shape)
 
 
+@functools.lru_cache(maxsize=64)
+def plan_vectors(plans: tuple, device: torch.device) -> torch.Tensor:
+    """(S, 3) f32 off_px, unit, size of each scale plan on ``device``, built
+    once per (plans, device) so that no call copies them to the card."""
+    return torch.tensor([[e.off_px, float(e.unit), float(e.size)] for e in plans], dtype=torch.float32,
+                        device=device)
+
+
 def candidates_from_scores(vals: torch.Tensor, idx: torch.Tensor, nx: int, plans, p: DetectorParams):
     """Per-scale top-k (B, S, k) values and flat indices into the plans'
     (shared) level grid of width nx -> the detector's proposal tuple
@@ -188,12 +197,12 @@ def candidates_from_scores(vals: torch.Tensor, idx: torch.Tensor, nx: int, plans
     b, ns, k = vals.shape
     iy = torch.div(idx, nx, rounding_mode="floor").to(torch.float32)
     ix = (idx % nx).to(torch.float32)
-    offs = torch.tensor([e.off_px for e in plans], dtype=torch.float32, device=vals.device)[None, :, None]
-    units = torch.tensor([float(e.unit) for e in plans], dtype=torch.float32, device=vals.device)[None, :, None]
+    vec = plan_vectors(tuple(plans), vals.device)
+    offs = vec[None, :, 0, None]
+    units = vec[None, :, 1, None]
     cy = (iy * units + offs).reshape(b, -1)
     cx = (ix * units + offs).reshape(b, -1)
-    sizes = torch.tensor([float(e.size) for e in plans], dtype=torch.float32, device=vals.device)
-    sizes = sizes[None, :, None].expand(b, ns, k).reshape(b, -1)
+    sizes = vec[None, :, 2, None].expand(b, ns, k).reshape(b, -1)
     vals = vals.reshape(b, -1)
     return torch.stack([cy, cx], dim=-1), sizes, vals, vals > p.score_threshold
 
@@ -250,6 +259,26 @@ def _proposals_from_pool(pool: torch.Tensor, h: int, w: int, p: DetectorParams):
     is scored on its pyramid level (level 1, the pooled grid itself, for
     every scale unless ``p.decimate``).
     """
+    plans, levels, masked = nms_maps(pool, h, w, p)
+
+    # Top-k per scale, batched per pyramid level (the ladder is monotone in q).
+    outs = []
+    a = 0
+    while a < len(plans):
+        b = a
+        while b < len(plans) and plans[b].q == plans[a].q:
+            b += 1
+        vals, idx = _top_k_grouped(torch.stack(masked[a:b], dim=1), p.per_scale_k)
+        outs.append(candidates_from_scores(vals, idx, levels[plans[a].q].shape[2], plans[a:b], p))
+        a = b
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def nms_maps(pool: torch.Tensor, h: int, w: int, p: DetectorParams):
+    """The score maps of :func:`_proposals_from_pool` after the adjacent-scale
+    non-max suppression: (plans, pyramid levels {q: (B, h_q, w_q)}, per scale
+    the (B, h_q * w_q) map that holds each local maximum's score above the
+    threshold and 0 elsewhere)."""
     st = p.proposal_stride
     h4, w4 = h // st, w // st
     pool = pool[:, :h4, :w4]
@@ -288,18 +317,7 @@ def _proposals_from_pool(pool: torch.Tensor, h: int, w: int, p: DetectorParams):
                 cross = torch.maximum(cross, _to_level(dils[sj], plans[sj].q, e.q, sc.shape[1:]))
         is_max = (sc >= cross) & (sc > p.score_threshold)
         masked.append(torch.where(is_max, sc, torch.zeros_like(sc)).reshape(pool.shape[0], -1))
-
-    # Top-k per scale, batched per pyramid level (the ladder is monotone in q).
-    outs = []
-    a = 0
-    while a < len(plans):
-        b = a
-        while b < len(plans) and plans[b].q == plans[a].q:
-            b += 1
-        vals, idx = _top_k_grouped(torch.stack(masked[a:b], dim=1), p.per_scale_k)
-        outs.append(candidates_from_scores(vals, idx, levels[plans[a].q].shape[2], plans[a:b], p))
-        a = b
-    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    return plans, levels, masked
 
 
 def pool_gray(gray: torch.Tensor, st: int) -> torch.Tensor:

@@ -139,6 +139,8 @@ class ArucoPipeline:
         self.detector = det.ArucoDetector(self.params, device=self.device)
         w, h = self.size_wh
         self._sel_th, self._sel_tw = remap.pick_tiles(w, h)
+        # The gray colour table of the remap kernels (K3, K4), built on the card only.
+        self.table = cuda_remap.colour_table(2.0, self.device) if self.device.type == "cuda" else None
         self.map_full = camera.undistort_rectify_map(self.mtx, self.dist, (w, h), tilt=self.tilt)
         if self.cfg.two_pass:
             st = self.params.proposal_stride
@@ -160,13 +162,13 @@ class ArucoPipeline:
             raise ValueError(f"frames are on {frames.device}, the pipeline on {self.device}")
         frames = frames.contiguous()
         if not self.cfg.two_pass:
-            gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw)  # K3, full res
+            gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw, table=self.table)  # K3
             corners, ids = self.detector.detect(gray)  # K2, K1 inside
             return self._front_from_detections(gray, corners, ids)
         p = self.params
         st = p.proposal_stride
         pooled_src = cuda_pool.pool_source(frames, st, self._pooled_hw)  # K5
-        pooled_gray = cuda_remap.remap_gray(pooled_src, self.map_pooled, *self._pooled_tiles)  # K3
+        pooled_gray = cuda_remap.remap_gray(pooled_src, self.map_pooled, *self._pooled_tiles, table=self.table)  # K3
         pool = pooled_gray[:, : h // st, : w // st].to(torch.float32)
         centers, sizes, scores, valid = det.proposals(pool, h, w, p)  # K2
         sel, covered = patch_select.select_tiles_batched(
@@ -174,7 +176,8 @@ class ArucoPipeline:
             t_sel=self.cfg.sel_tile_budget, per_scale_k=p.per_scale_k,
         )
         if self.device.type == "cuda":
-            gray = cuda_remap.remap_gray_selected(frames, self.map_full, sel, self._sel_th, self._sel_tw)  # K4
+            gray = cuda_remap.remap_gray_selected(frames, self.map_full, sel, self._sel_th, self._sel_tw,
+                                                  table=self.table)  # K4
         else:
             gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw)
         corners, ids = det.candidates(gray, centers, sizes, scores, valid, p, covered)  # K1 inside

@@ -20,6 +20,9 @@ import torch
 from apse_uav_torch.core import camera, colorspace
 from apse_uav_torch.device import resolve_device
 
+# Colours of three u8 channels: the entries of the colour table.
+N_COLOURS = 1 << 24
+
 
 def pick_tiles(width: int, height: int) -> tuple[int, int]:
     """Output tile (TH, TW) of a frame: the first supported tile height and
@@ -82,6 +85,29 @@ def remap_gray_u8(src: torch.Tensor, map_xy: torch.Tensor, gamma: float = 2.0) -
     return colorspace.bgr_to_gray_u8(colorspace.gamma_correct_u8(und, gamma=gamma))
 
 
+def lab_gamma_table(gamma: float = 2.0, rgb: bool = False, device="cpu", chunk: int = 1 << 21) -> torch.Tensor:
+    """Plain version of the colour-table kernel: ``gamma_correct_u8`` and
+    ``bgr_to_gray_u8`` of every stored-order colour i = c0 << 16 | c1 << 8 | c2.
+
+    Returns the (2^24,) u8 gray table, or with ``rgb`` the (2^24,) int32 table
+    whose bits are the u32 B | G << 8 | R << 16 | gray << 24.  Evaluated in
+    chunks of ``chunk`` colours on ``device``.
+    """
+    parts = []
+    for lo in range(0, N_COLOURS, chunk):
+        i = torch.arange(lo, min(lo + chunk, N_COLOURS), dtype=torch.int64, device=device)
+        colours = torch.stack([i >> 16, (i >> 8) & 255, i & 255], dim=-1).to(torch.uint8)
+        out = colorspace.gamma_correct_u8(colours, gamma=gamma)
+        gray = colorspace.bgr_to_gray_u8(out)
+        if not rgb:
+            parts.append(gray)
+            continue
+        o = out.to(torch.int64)
+        packed = o[:, 0] | o[:, 1] << 8 | o[:, 2] << 16 | gray.to(torch.int64) << 24
+        parts.append(torch.where(packed >= 1 << 31, packed - (1 << 32), packed).to(torch.int32))
+    return torch.cat(parts)
+
+
 def remap_rgb_gray_u8(src: torch.Tensor, map_xy: torch.Tensor, gamma: float = 2.0, hwc: bool = False):
     """Plain K3 RGB mode: undistort + LAB gamma -> (rgb in src's layout, gray).
 
@@ -97,8 +123,10 @@ class Preprocessor:
 
     Counterpart of the reference's ``Preprocessor`` (the preprocessing that
     ``track_uav --preprocess`` feeds to the DCNN tracker).  The map is built
-    once, on ``device``.  On the card each call is one launch of kernel K3's
-    RGB mode on the HWC frames as they are; on the CPU the plain chain runs.
+    once, on ``device``, and on the card the packed colour table of ``gamma``
+    (``cuda_remap.colour_table``) too.  On the card each call is one launch of
+    kernel K3's RGB mode on the HWC frames as they are; on the CPU the plain
+    chain runs.
 
     Example:
         pre = Preprocessor.from_json("data/cam_params.json", (3840, 2160))
@@ -115,6 +143,11 @@ class Preprocessor:
         mtx_t = torch.as_tensor(np.asarray(mtx, np.float64), dtype=torch.float32, device=self.device)
         self.map_xy = camera.undistort_rectify_map(mtx_t, camera.pad_dist_coeffs(dist, device=self.device),
                                                    self.size_wh, tilt=camera.has_tilt(dist))
+        self.table = None
+        if self.device.type == "cuda":
+            from apse_uav_torch.preproc import cuda_remap
+
+            self.table = cuda_remap.colour_table(self.gamma, self.device, rgb=True)
 
     @classmethod
     def from_json(cls, path: str, size_wh: tuple[int, int], gamma: float = 2.0, device="cuda"):
@@ -130,7 +163,8 @@ class Preprocessor:
             return out[0], (None if gray is None else gray[0])
         if frames.device != self.device:
             raise ValueError(f"frames are on {frames.device}, the preprocessor on {self.device}")
-        return cuda_remap.remap_rgb_gray(frames, self.map_xy, self.gamma, hwc=True, with_gray=with_gray)
+        return cuda_remap.remap_rgb_gray(frames, self.map_xy, self.gamma, hwc=True, with_gray=with_gray,
+                                         table=self.table)
 
 
 def preprocess_frames(frames: torch.Tensor, mtx, dist, size_wh: tuple[int, int], gamma: float = 2.0):

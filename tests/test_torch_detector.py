@@ -117,6 +117,76 @@ def test_proposals_plain_match_jax(gray):
         assert tdet._patch_groups(size[1], size[0], tp) == jdet._patch_groups(size[1], size[0], p)
 
 
+def _dark_squares_pool(b: int, h4: int, w4: int, seed: int) -> np.ndarray:
+    """A bright pooled field with dark squares of many sizes and some noise."""
+    rng = np.random.default_rng(seed)
+    pool = np.full((b, h4, w4), 200.0, np.float32)
+    for f in range(b):
+        for _ in range(14):
+            s = int(rng.integers(2, min(40, h4 // 2)))
+            y, x = int(rng.integers(-s // 2, h4 - s // 2)), int(rng.integers(-s // 2, w4 - s // 2))
+            pool[f, max(y, 0): y + s, max(x, 0): x + s] = 20.0
+    return pool + rng.integers(0, 4, pool.shape).astype(np.float32) / 4
+
+
+@pytest.mark.parametrize("case", ["gray_960x544", "squares_528x392"])
+def test_tile_topk_and_select_plain_match_proposals(gray, case):
+    """The plain versions of K2's last two kernels: the per-tile top-k of the
+    NMS maps (tiles of 32 x 64 cells, overhanging the pooled grid on both
+    edges in the 132 x 98 case) followed by the global top-k and centres give
+    _proposals_from_pool's valid candidates per scale with the same scores,
+    and the same (values, flat indices) as a stable top-k of the whole map
+    (exact, ties included)."""
+    tp = tdet.DetectorParams()
+    if case == "gray_960x544":
+        h, w = H, W
+        pool = torch.from_numpy(gray).to(torch.float32).reshape(1, H // 4, 4, W // 4, 4).mean(dim=(2, 4))
+    else:
+        h, w = 392, 528
+        pool = torch.from_numpy(_dark_squares_pool(2, h // 4, w // 4, seed=5))
+    h4, w4 = h // 4, w // 4
+    assert (h4 % cuda_proposals.TILE[0], w4 % cuda_proposals.TILE[1]) != (0, 0)
+    k = tp.per_scale_k
+    plans, _, masked = tdet.nms_maps(pool, h, w, tp)
+    maps = torch.stack(masked, dim=1).reshape(pool.shape[0], len(plans), h4, w4)
+    tile_val, tile_idx = cuda_proposals.tile_topk_plain(maps, k)
+    full_v, full_i = tdet._top_k(maps.reshape(*maps.shape[:2], -1), k)
+    order = torch.argsort(tile_idx, dim=-1, stable=True)
+    v, i = torch.gather(tile_val, -1, order), torch.gather(tile_idx, -1, order)
+    top = torch.argsort(v, dim=-1, descending=True, stable=True)[..., :k]
+    assert torch.equal(torch.gather(v, -1, top), full_v) and torch.equal(torch.gather(i, -1, top).long(), full_i)
+    got = cuda_proposals.select_plain(tile_val, tile_idx, w4, plans, tp)
+    want = tdet._proposals_from_pool(pool, h, w, tp)
+    assert all(g.shape == x.shape for g, x in zip(got, want))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    n_valid = 0
+    for b in range(pool.shape[0]):
+        for a in range(0, want[0].shape[1], k):
+            def cand(pr):
+                c, s, sc, ok = (t[b, a:a + k] for t in pr)
+                return {(float(cc[0]), float(cc[1]), float(ss)): float(vv) for cc, ss, vv, o in zip(c, s, sc, ok) if o}
+
+            assert cand(got) == cand(want), (b, a // k)
+            n_valid += len(cand(got))
+    assert n_valid >= 4
+
+
+def test_tile_topk_plain_orders_ties_by_flat_index():
+    """Per-tile top-k with k_tile = k is exact under (value desc, flat index
+    asc): on maps of few distinct values (many ties, zeros included) the
+    global top-k of the tiles' candidates is the whole map's stable top-k."""
+    rng = np.random.default_rng(7)
+    maps = torch.from_numpy(rng.integers(0, 3, (2, 3, 70, 150)).astype(np.float32) / 4)
+    k = 6
+    tile_val, tile_idx = cuda_proposals.tile_topk_plain(maps, k)
+    assert tile_val.shape == (2, 3, 3 * 3 * k)
+    order = torch.argsort(tile_idx, dim=-1, stable=True)
+    v, i = torch.gather(tile_val, -1, order), torch.gather(tile_idx, -1, order)
+    top = torch.argsort(v, dim=-1, descending=True, stable=True)[..., :k]
+    full_v, full_i = tdet._top_k(maps.reshape(2, 3, -1), k)
+    assert torch.equal(torch.gather(v, -1, top), full_v) and torch.equal(torch.gather(i, -1, top).long(), full_i)
+
+
 @pytest.mark.parametrize("t_sel", [256, 6], ids=["budget", "overflow"])
 def test_select_tiles_matches_jax(t_sel):
     """sel and covered identical, including when the tile budget overflows

@@ -14,7 +14,7 @@ from apse_uav_tpu.core import camera as jcam
 from apse_uav_tpu.preproc import remap as jremap, twopass as jtp
 from apse_uav_tpu.preproc.pallas_remap import _pick_tiles
 from apse_uav_tpu.utils import synthetic as jsyn
-from apse_uav_torch.core import camera as tcam
+from apse_uav_torch.core import camera as tcam, colorspace as tcs
 from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap as tremap, twopass as ttp
 from apse_uav_torch.utils import synthetic as tsyn
 
@@ -91,6 +91,55 @@ def test_remap_gray_matches_jax(cam, frames, pooled):
     # The wrappers of K3 take the plain version on CPU tensors.
     th, tw = tremap.pick_tiles(*size)
     assert torch.equal(cuda_remap.remap_gray(torch.from_numpy(src), map_t, th, tw), gray_t)
+
+
+@pytest.fixture(scope="module")
+def bgrg_table():
+    """The plain packed colour table of gamma 2: int32 bits of the u32
+    B | G << 8 | R << 16 | gray << 24 of every colour c0 << 16 | c1 << 8 | c2."""
+    return tremap.lab_gamma_table(2.0, rgb=True).to(torch.int64) & 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("kind", ["rendered", "random"])
+def test_colour_table_gathered_is_the_plain_remap(cam, frames, bgrg_table, kind):
+    """The design of the remap kernels on the card: the LAB chain once per
+    colour, gathered at bilinear_remap_u8's output, gives remap_gray_u8's gray
+    and remap_rgb_gray_u8's RGB and gray bit for bit, on the 960x544 rendered
+    frames and on uniform random ones (every colour a table entry)."""
+    ms, dist = cam
+    if kind == "rendered":
+        src = torch.from_numpy(frames)
+    else:
+        src = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 3, H, W), np.uint8))
+    map_t = tcam.undistort_rectify_map(torch.tensor(ms, dtype=torch.float32), tcam.pad_dist_coeffs(dist), (W, H))
+    und = tremap.bilinear_remap_u8(src, map_t).to(torch.int64)
+    v = bgrg_table[und[:, 0] << 16 | und[:, 1] << 8 | und[:, 2]]
+    gray = ((v >> 24) & 255).to(torch.uint8)
+    rgb = torch.stack([(v >> (8 * c)) & 255 for c in range(3)], dim=1).to(torch.uint8)
+    assert torch.equal(gray, tremap.remap_gray_u8(src, map_t))
+    rgb_p, gray_p = tremap.remap_rgb_gray_u8(src, map_t)
+    assert torch.equal(rgb, rgb_p) and torch.equal(gray, gray_p)
+    if kind == "random":
+        assert len(torch.unique(und[:, 0] << 16 | und[:, 1] << 8 | und[:, 2])) > 5 * 10 ** 5
+
+
+@pytest.mark.parametrize("gamma", [2.0, 1.6])
+def test_colour_table_matches_closed_form(bgrg_table, gamma):
+    """The plain gray and packed tables of gamma 2 and of another gamma
+    against the closed form (gamma_correct_u8, bgr_to_gray_u8) on 2^16
+    seeded colours; the gray table is the packed table's top byte."""
+    gray = tremap.lab_gamma_table(gamma)
+    packed = bgrg_table if gamma == 2.0 else tremap.lab_gamma_table(gamma, rgb=True).to(torch.int64) & 0xFFFFFFFF
+    assert gray.shape == packed.shape == (1 << 24,) and gray.dtype == torch.uint8
+    assert torch.equal(gray, ((packed >> 24) & 255).to(torch.uint8))
+    colours = torch.from_numpy(np.random.default_rng(int(gamma * 10)).integers(0, 256, (1 << 16, 3), np.uint8))
+    out = tcs.gamma_correct_u8(colours, gamma=gamma)
+    c = colours.to(torch.int64)
+    i = c[:, 0] << 16 | c[:, 1] << 8 | c[:, 2]
+    assert torch.equal(gray[i], tcs.bgr_to_gray_u8(out))
+    assert torch.equal(torch.stack([(packed[i] >> (8 * ch)) & 255 for ch in range(3)], dim=-1), out.to(torch.int64))
+    if gamma != 2.0:
+        assert not torch.equal(gray, ((bgrg_table >> 24) & 255).to(torch.uint8))
 
 
 def test_selected_tiles_on_cpu_are_the_full_frame_tiles(cam, frames):
