@@ -4,8 +4,10 @@ Replaces the JAX reference's ``aruco/pallas_labeling.py`` (``labels_batched``). 
 a CPU tensor it runs the plain version,
 :func:`apse_uav_torch.aruco.detector._label_sweeps`; on a CUDA tensor it
 launches the kernel or raises.  Output is bit-identical either way: the
-schedule is integer arithmetic and a prefix min does not depend on the scan
-order.  ``_largest_from_labels`` stays plain PyTorch after the kernel, as
+kernel computes each sweep of the same fixed schedule as a run-min (a warp
+per line, segmented shuffle scans over the mask's bits), which is what the
+plain version's keyed prefix mins compute, and the mop steps as Jacobi
+steps.  ``_largest_from_labels`` stays plain PyTorch after the kernel, as
 the reference keeps it in XLA outside its Pallas call.
 """
 

@@ -114,3 +114,49 @@ def render_scene(mtx, dist, size_wh: tuple[int, int], markers: list[MarkerSpec],
     img = img.reshape(h, ss, w, ss).mean(dim=(1, 3))
     img = torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
     return img[..., None].expand(h, w, 3).contiguous()
+
+
+def _spiral(win: int) -> np.ndarray:
+    """A one-cell-wide square spiral with one-cell gaps, walked inward from (0, 0)."""
+    m = np.zeros((win, win), bool)
+    y = x = d = 0
+    steps = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    m[0, 0] = True
+
+    def free(yy, xx):
+        return 0 <= yy < win and 0 <= xx < win and not m[yy, xx]
+
+    def can(d):
+        dy, dx = steps[d]
+        ahead = (y + 2 * dy, x + 2 * dx)
+        return free(y + dy, x + dx) and (not (0 <= ahead[0] < win and 0 <= ahead[1] < win) or not m[ahead])
+
+    while can(d) or can((d + 1) % 4):
+        if not can(d):
+            d = (d + 1) % 4
+        y, x = y + steps[d][0], x + steps[d][1]
+        m[y, x] = True
+    return m
+
+
+def labeling_masks(win: int) -> dict[str, np.ndarray]:
+    """Hard (win, win) masks for the component-labeling schedule of
+    ``detector._label_sweeps``: a serpentine along rows and one along columns
+    and a square spiral (each one 4-connected component that the fixed
+    schedule leaves split into many labels), full-dark rows and columns, a
+    checkerboard, isolated cells, an all-dark and an empty window."""
+    yy, xx = np.mgrid[:win, :win]
+    snake = yy % 2 == 0
+    snake |= (yy % 4 == 1) & (xx == win - 1)
+    snake |= (yy % 4 == 3) & (xx == 0)
+    return {
+        "serpentine_rows": snake,
+        "serpentine_cols": snake.T.copy(),
+        "spiral": _spiral(win),
+        "dark_rows": (yy % 4 == 0) | ((xx == 5) & (yy < win // 2)),
+        "dark_cols": (xx % 5 == 1) | ((yy == 3) & (xx > win // 3)),
+        "checkerboard": (yy + xx) % 2 == 0,
+        "isolated": (yy % 3 == 0) & (xx % 3 == 0),
+        "all_dark": np.ones((win, win), bool),
+        "empty": np.zeros((win, win), bool),
+    }

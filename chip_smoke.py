@@ -28,14 +28,15 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    just before; RGB and gray bit-identical to the plain version.
 5. kernels      -- each kernel against its plain PyTorch version on the card at
                    its path's shapes (the colour tables bit-identical; K1
-                   bit-identical labels; K2 same candidate set per scale, scores
+                   bit-identical labels, also on masks its fixed schedule does
+                   not converge on; K2 same candidate set per scale, scores
                    within 5e-4; K3 bit-identical on the pooled plan and on the
                    full frame; K4 bit-identical to the plain version and to K3's
                    full frame on the selected tiles; K5 bit-identical, pad
                    included; K3's RGB mode bit-identical), again on a batch of
                    uniform random frames (every remap kernel and K5
                    bit-identical); the colour tables' build time; one call of
-                   each redesigned wrapper (K2, K3, K4, K3-RGB) under
+                   each redesigned wrapper (K1, K2, K3, K4, K3-RGB) under
                    ``torch.cuda.set_sync_debug_mode("error")``; each kernel timed
                    with CUDA events (the wrapper call) and torch.profiler (its
                    kernels' device time alone) beside the plain version and one
@@ -303,7 +304,7 @@ def main() -> int:
     from apse_uav_torch.core import camera
     from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
     from apse_uav_torch.utils import csv_io
-    from apse_uav_torch.utils.synthetic import render_scene
+    from apse_uav_torch.utils.synthetic import labeling_masks, render_scene
 
     # -- 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -418,16 +419,17 @@ def main() -> int:
             k2_err = max([k2_err] + [abs(got[key] - want[key]) for key in got])
     if k2_err > 5e-4:
         raise SmokeFailure(f"K2 vs plain: score error {k2_err}")
-    # K1 on the (60 B, 64, 64) windows of the real frames plus random masks.
+    # K1 on the (60 B, 64, 64) windows of the real frames plus random masks (the
+    # timed windows), and on masks the fixed schedule does not converge on.
     centers, sizes, scores, valid = props
     full_gray = cuda_remap.remap_gray(frames, pipe.map_full, pipe._sel_th, pipe._sel_tw, table=table)
     _, darks = det.binarized_windows(full_gray.to(torch.float32), centers, sizes, p)
     gen = torch.Generator(device=dev).manual_seed(0)
     noise = torch.rand((darks.shape[0] // 4, p.window, p.window), generator=gen, device=dev) < 0.5
     darks = torch.cat([darks, noise]).contiguous()
-    lab = cuda_labeling.labels(darks)
-    lab_plain = det._label_sweeps(darks)
-    k1_err = int((lab != lab_plain).sum())
+    hard = torch.from_numpy(np.stack(list(labeling_masks(p.window).values()))).to(dev)
+    checked = torch.cat([darks, hard]).contiguous()
+    k1_err = int((cuda_labeling.labels(checked) != det._label_sweeps(checked)).sum())
     if k1_err:
         raise SmokeFailure(f"K1 vs plain: {k1_err} labels differ")
     # K4 on the full-res plan with -1 padding and duplicated tile ids.
@@ -474,7 +476,8 @@ def main() -> int:
          "remap_full full frame", "remap_selected", "remap_full_rgb"], "card": card})
 
     # One call of each redesigned wrapper with synchronisation as an error.
-    for name, fn in (("proposals", lambda: cuda_proposals.proposals_from_pool(pool, H, W, p)),
+    for name, fn in (("labeling", lambda: cuda_labeling.labels(darks)),
+                     ("proposals", lambda: cuda_proposals.proposals_from_pool(pool, H, W, p)),
                      ("remap_full", lambda: cuda_remap.remap_gray(pooled_src, pipe.map_pooled, *pipe._pooled_tiles,
                                                                   table=table)),
                      ("remap_selected", lambda: cuda_remap.remap_gray_selected(frames, pipe.map_full, sel, pipe._sel_th,

@@ -22,7 +22,7 @@ from apse_uav_torch.aruco import cuda_labeling, cuda_proposals, detector as det
 from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
 from apse_uav_torch.core import camera
 from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
-from apse_uav_torch.utils.synthetic import MarkerSpec, render_scene
+from apse_uav_torch.utils.synthetic import MarkerSpec, labeling_masks, render_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -57,16 +57,28 @@ def frames(cam, dev):
                         for _ in range(2)]).contiguous()
 
 
-@pytest.mark.parametrize("win", [64, 33])
-def test_labels_bit_identical(dev, win):
-    """K1: the label field equals the plain version's bit for bit."""
-    gen = torch.Generator(device=dev).manual_seed(win)
-    dark = torch.rand((37, win, win), generator=gen, device=dev) < 0.55
-    dark[0] = False
-    dark[1] = True
-    got = cuda_labeling.labels(dark)
-    torch.cuda.synchronize()
-    assert torch.equal(got, det._label_sweeps(dark))
+@pytest.mark.parametrize("k", [1, 37, 600])
+@pytest.mark.parametrize("win", [64, 48, 33, 32, 17])
+def test_labels_bit_identical(dev, win, k):
+    """K1: the label field equals the plain version's bit for bit on masks the
+    schedule does not converge on (serpentines, a spiral), full-dark rows and
+    columns, a checkerboard, isolated cells, all-dark and empty windows, and
+    random masks of densities 0.3, 0.55 and 0.8; K = 1 launches each mask
+    alone.  With 16-byte mask loads (win a multiple of 16) and without them
+    (any other win, or a window not 16-byte aligned)."""
+    rng = np.random.default_rng(win * 1000 + k)
+    hard = list(labeling_masks(win).values())
+    rand = [rng.random((win, win)) < dens for dens in (0.3, 0.55, 0.8) for _ in range(max(1, -(-(k - len(hard)) // 3)))]
+    masks = torch.from_numpy(np.stack(hard + rand)).to(dev)
+    batches = [masks[i:i + 1] for i in range(masks.shape[0])] if k == 1 else [masks[:k]]
+    if k == 37:  # the same windows 1 byte past a 16-byte boundary
+        flat = torch.zeros(k * win * win + 1, dtype=torch.bool, device=dev)
+        flat[1:] = masks[:k].reshape(-1)
+        batches.append(flat[1:].view(k, win, win))
+    for dark in batches:
+        got = cuda_labeling.labels(dark)
+        torch.cuda.synchronize()
+        assert torch.equal(got, det._label_sweeps(dark))
 
 
 def test_labels_input_checks(dev):

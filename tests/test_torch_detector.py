@@ -16,6 +16,7 @@ from apse_uav_tpu.core import camera as jcam
 from apse_uav_tpu.preproc import remap as jremap
 from apse_uav_tpu.utils.synthetic import MarkerSpec, render_scene
 from apse_uav_torch.aruco import cuda_labeling, cuda_proposals, detector as tdet, patch_select as tps
+from apse_uav_torch.utils.synthetic import labeling_masks
 
 import torch_parity
 
@@ -78,6 +79,58 @@ def test_labeling_plain_matches_jax_bit_for_bit():
     assert np.array_equal(tdet._largest_component(torch.from_numpy(masks), WIN).numpy(), want)
     # Root labels: y*win + x of a component cell; sentinel win*win off the mask.
     assert (labels.numpy()[~masks] == WIN * WIN).all()
+
+
+def _runmin_schedule(dark: np.ndarray, rounds: int = 3, mop: int = 8) -> np.ndarray:
+    """The schedule as kernel K1 computes it, in numpy: each sweep gives every
+    dark cell the least label of its dark run along the axis (rows, then
+    columns, ``rounds`` times), then ``mop`` Jacobi radius-1 steps."""
+    n_win, win, _ = dark.shape
+    n = win * win
+    lab = np.where(dark, np.arange(n).reshape(win, win), n).astype(np.int32)
+
+    def run_min(lab, axis):
+        # Run id: the lines' non-dark cells counted along the axis, made unique per line.
+        rid = np.cumsum(~dark, axis=axis)
+        if axis == 2:  # a line per (window, row)
+            line = np.arange(n_win * win).reshape(n_win, win, 1)
+        else:  # a line per (window, column)
+            line = np.arange(n_win)[:, None, None] * win + np.arange(win)
+        seg = line * (win + 1) + rid
+        mins = np.full(n_win * win * (win + 1), n, np.int32)
+        np.minimum.at(mins, seg[dark], lab[dark])
+        return np.where(dark, mins[seg], n).astype(np.int32)
+
+    for _ in range(rounds):
+        lab = run_min(lab, 2)
+        lab = run_min(lab, 1)
+    for _ in range(mop):
+        p = np.pad(lab, ((0, 0), (1, 1), (1, 1)), constant_values=n)
+        neigh = np.minimum(np.minimum(p[:, :-2, 1:-1], p[:, 2:, 1:-1]), np.minimum(p[:, 1:-1, :-2], p[:, 1:-1, 2:]))
+        lab = np.where(dark, np.minimum(lab, neigh), n).astype(np.int32)
+    return lab
+
+
+@pytest.mark.parametrize("win", [64, 33, 17])
+def test_labeling_runmin_model_bit_for_bit(win):
+    """K1's design, run-min sweeps and Jacobi mop steps, is the reference's
+    fixed schedule bit for bit: the numpy model above against _label_sweeps
+    (labels) and the JAX _largest_component (largest-component masks), on
+    masks the schedule does not converge on (serpentines, a spiral: more
+    labels than scipy's components), full-dark rows and columns, a
+    checkerboard, isolated cells and, at 64, the parity test's masks."""
+    hard = labeling_masks(win)
+    masks = np.stack(list(hard.values()) + ([*_masks()] if win == WIN else []))
+    model = _runmin_schedule(masks)
+    assert np.array_equal(model, tdet._label_sweeps(torch.from_numpy(masks)).numpy())
+    want = np.asarray(jax.vmap(lambda d: jdet._largest_component(d, win))(jnp.asarray(masks)))
+    assert np.array_equal(tdet._largest_from_labels(torch.from_numpy(model), win).numpy(), want)
+    for i, name in enumerate(hard):
+        n_labels = len(np.unique(model[i][masks[i]]))
+        if name in ("serpentine_rows", "serpentine_cols", "spiral"):
+            assert ndi.label(masks[i])[1] == 1 and n_labels > 1, (name, n_labels)
+        else:
+            assert n_labels == ndi.label(masks[i])[1], (name, n_labels)
 
 
 @pytest.mark.slow
