@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the apse-uav ArUco measurement pipeline.
+"""PyTorch + CUDA port of apse-uav: the ArUco measurement pipeline and the
+DCNN (Mask R-CNN) vehicle tracker.
 
 The JAX package beside it in this repository is the reference; this package
 mirrors its layout and names (``aruco/detector.py`` there is
@@ -10,7 +11,9 @@ Every entry point takes an explicit ``device`` and runs on ``"cuda"`` unless
 the caller asks for ``"cpu"``; asking for CUDA where there is none raises
 (see :mod:`apse_uav_torch.device`).  On a CUDA tensor each kernel wrapper
 (``cuda_*.py``) launches its hand-written Hopper kernel (``csrc/*.cu``); on a
-CPU tensor it runs the kernel's plain PyTorch version.
+CPU tensor it runs the kernel's plain PyTorch version.  The DCNN package
+(``dcnn/``) has no kernel of its own: its convolutions and matrix products
+are library calls, the rest plain PyTorch.
 """
 
 from apse_uav_torch.device import resolve_device

@@ -57,3 +57,101 @@ def carry_to_torch(carry: dict, device="cuda") -> dict[str, torch.Tensor]:
 
 def carry_to_numpy(carry: dict) -> dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in carry.items()}
+
+
+# -- DCNN: configs and parameter trees ---------------------------------------
+
+
+def model_config(d: dict):
+    """Port a dcnn ModelConfig from ``dataclasses.asdict`` of the JAX one
+    (nested configs included); unknown fields raise."""
+    from apse_uav_torch.dcnn import config as dc
+
+    d = dict(d)
+    subs = {"anchors": dc.AnchorConfig, "rpn": dc.RPNConfig, "roi": dc.ROIConfig, "input": dc.InputConfig}
+    for key, cls in subs.items():
+        if key in d:
+            d[key] = _from_dict(cls, d[key], set())
+    return _from_dict(dc.ModelConfig, d, set())
+
+
+def tracker_config(d: dict):
+    """Port a TrackerConfig from ``dataclasses.asdict`` of the JAX one."""
+    from apse_uav_torch.dcnn.config import TrackerConfig
+
+    return _from_dict(TrackerConfig, d, set())
+
+
+def _flax_conv(k) -> np.ndarray:
+    """flax Conv kernel (kh, kw, I, O) -> torch (O, I, kh, kw)."""
+    return np.ascontiguousarray(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _flax_deconv(k) -> np.ndarray:
+    """flax ConvTranspose kernel (kh, kw, I, O) -> torch ConvTranspose2d (I, O, kh, kw).
+    flax applies the kernel unmirrored, torch's transposed convolution
+    mirrored: the spatial axes flip back."""
+    return np.ascontiguousarray(np.transpose(np.asarray(k), (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
+def _flax_dense(k) -> np.ndarray:
+    """flax Dense kernel (I, O) -> torch Linear (O, I)."""
+    return np.ascontiguousarray(np.asarray(k).T)
+
+
+_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _mask_rcnn_key(path: str):
+    """A JAX MaskRCNN parameter path -> (detectron2 key, layout function)."""
+    parts = path.split("/")
+    leaf = parts[-1]
+    ident = np.asarray
+    if parts[:2] == ["backbone", "resnet"]:
+        bb = "backbone.bottom_up"
+        if parts[2] == "stem_conv":
+            return f"{bb}.stem.conv1.weight", _flax_conv
+        if parts[2] == "stem_bn":
+            return f"{bb}.stem.conv1.norm.{_BN[leaf]}", ident
+        stage, idx = parts[2][3:].split("_")  # res{stage}_{idx}
+        base, layer = f"{bb}.res{stage}.{idx}", parts[3]
+        if layer in ("conv1", "conv2", "conv3", "shortcut"):
+            return f"{base}.{layer}.weight", _flax_conv
+        conv = "shortcut" if layer == "shortcut_bn" else f"conv{layer[2:]}"
+        return f"{base}.{conv}.norm.{_BN[leaf]}", ident
+    suffix, conv_fn = ("weight", _flax_conv) if leaf == "kernel" else ("bias", ident)
+    if parts[:2] == ["backbone", "fpn"]:
+        kind = "lateral" if parts[2].startswith("lateral") else "output"
+        return f"backbone.fpn_{kind}{parts[2][len(kind):]}.{suffix}", conv_fn
+    rpn = {"conv": "conv", "objectness": "objectness_logits", "deltas": "anchor_deltas"}
+    if parts[0] == "rpn_head" and parts[1] in rpn:
+        return f"proposal_generator.rpn_head.{rpn[parts[1]]}.{suffix}", conv_fn
+    if parts[0] == "box_head":
+        owner = "box_head" if parts[1].startswith("fc") else "box_predictor"
+        return f"roi_heads.{owner}.{parts[1]}.{suffix}", _flax_dense if leaf == "kernel" else ident
+    if parts[0] == "mask_head":
+        deconv = parts[1] == "deconv" and leaf == "kernel"
+        return f"roi_heads.mask_head.{parts[1]}.{suffix}", _flax_deconv if deconv else conv_fn
+    raise ValueError(f"no port parameter for JAX MaskRCNN parameter {path!r}")
+
+
+def mask_rcnn_state_dict(flat: dict) -> dict[str, np.ndarray]:
+    """The JAX MaskRCNN parameters ({'/'-joined flax path: array}, e.g.
+    ``weights.flatten`` of the tree) -> the port's MaskRCNN state dict
+    (detectron2 names): convolutions HWIO -> OIHW, Dense kernels transposed,
+    the ConvTranspose kernel flipped back.  An unknown path raises."""
+    out = {}
+    for path, v in flat.items():
+        key, fn = _mask_rcnn_key(path)
+        out[key] = np.array(fn(v), np.float32)  # an owned, writable copy
+    return out
+
+
+def association_state_dict(flat: dict) -> dict[str, np.ndarray]:
+    """The JAX AssociationHead parameters ({"fc/kernel", "fc/bias"}) -> the
+    port's AssociationHead state dict."""
+    unknown = set(flat) - {"fc/kernel", "fc/bias"}
+    if unknown:
+        raise ValueError(f"no port parameter for JAX AssociationHead parameter(s) {sorted(unknown)}")
+    return {"fc.weight": np.array(_flax_dense(flat["fc/kernel"]), np.float32),
+            "fc.bias": np.array(flat["fc/bias"], np.float32)}

@@ -1,0 +1,113 @@
+"""Mask R-CNN (GeneralizedRCNN with TrackRCNN semantics), inference.
+
+Counterpart of the JAX reference's ``dcnn/models/mask_rcnn.py``: batched
+NHWC images, fixed-capacity proposals and detections with validity masks, and
+an ``inference`` that also returns the backbone maps (the tracker's re-ID
+head reads p2).  The module tree is detectron2's, so ``state_dict()`` keys
+are a GeneralizedRCNN checkpoint's (see :mod:`apse_uav_torch.dcnn.weights`).
+
+The stages are methods of their own (``features``, ``proposals``,
+``detect``) so a caller can time them apart; ``inference`` runs them in
+order.  Only float32 compute is ported: ``compute_dtype="bfloat16"`` (the
+CLI's ``--bf16``) and the C4 architecture raise, naming ``ROADMAP.md``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from apse_uav_torch.dcnn.config import ModelConfig
+from apse_uav_torch.dcnn.models.resnet import ResNetFPN
+from apse_uav_torch.dcnn.models.roi_heads import (POOL_LEVELS, BoxHead, BoxPredictor, MaskHead, box_inference,
+                                                 fpn_roi_align)
+from apse_uav_torch.dcnn.models.rpn import RPNHead, select_proposals
+
+RPN_LEVELS = ("p2", "p3", "p4", "p5", "p6")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise on the parts of a ModelConfig the port does not run yet."""
+    if cfg.architecture != "fpn":
+        raise NotImplementedError(f"architecture={cfg.architecture!r}: the C4 model (Res5Stage) is not ported "
+                                  "yet (ROADMAP.md, item 12)")
+    for field in ("compute_dtype", "head_compute_dtype"):
+        if getattr(cfg, field) not in ("float32", ""):
+            raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: only float32 compute is ported; the "
+                                      "bf16 compute path waits (ROADMAP.md, item 12)")
+
+
+class ROIHeads(nn.Module):
+    """The box head, box predictor and mask head (detectron2 ``roi_heads.*``)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        roi = cfg.roi
+        self.box_head = BoxHead(cfg.fpn_channels * roi.box_pooler_resolution**2, roi.box_fc_dim, roi.num_box_fc)
+        self.box_predictor = BoxPredictor(roi.box_fc_dim, roi.num_classes)
+        if cfg.mask_on:
+            self.mask_head = MaskHead(roi.num_classes, cfg.fpn_channels, roi.mask_conv_dim, roi.num_mask_conv)
+
+
+class MaskRCNN(nn.Module):
+    """Mask R-CNN R-FPN for inference.
+
+    Example:
+        model = MaskRCNN(uav_tracker_config()).to("cuda").eval()
+        weights.load_detectron2(model, weights.load_torch_file("model_final.pth"))
+        dets, feats = model.inference(images)   # images (B, H, W, 3) f32 BGR
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.backbone = ResNetFPN(cfg.depth, cfg.fpn_channels, cfg.stride_in_1x1)
+        self.proposal_generator = nn.ModuleDict(
+            {"rpn_head": RPNHead(len(cfg.anchors.aspect_ratios), cfg.fpn_channels)})
+        self.roi_heads = ROIHeads(cfg)
+        self.register_buffer("pixel_mean", torch.tensor(cfg.input.pixel_mean, dtype=torch.float32), persistent=False)
+        self.register_buffer("pixel_std", torch.tensor(cfg.input.pixel_std, dtype=torch.float32), persistent=False)
+
+    def features(self, images: torch.Tensor) -> dict[str, torch.Tensor]:
+        """images (B, H, W, 3) float in the configured channel order -> NHWC
+        res2..res5 and p2..p6 maps (the reference's ``backbone`` mode)."""
+        return self.backbone((images - self.pixel_mean) / self.pixel_std)
+
+    def proposals(self, feats: dict[str, torch.Tensor], image_hw: tuple[int, int]):
+        """RPN head + proposal selection -> (boxes (B, P, 4), scores (B, P), valid (B, P))."""
+        logits, deltas = self.proposal_generator["rpn_head"]({n: feats[n] for n in RPN_LEVELS})
+        level_shapes = {n: tuple(feats[n].shape[1:3]) for n in RPN_LEVELS}
+        return select_proposals(logits, deltas, level_shapes, image_hw, self.cfg.anchors, self.cfg.rpn)
+
+    def detect(self, feats: dict[str, torch.Tensor], boxes: torch.Tensor, valid: torch.Tensor,
+               image_hw: tuple[int, int]) -> dict[str, torch.Tensor]:
+        """ROI heads on the proposals: boxes (B, D, 4), scores, classes, valid
+        and (with masks) masks (B, D, 2R, 2R), the sigmoid of each
+        detection's own class channel."""
+        cfg = self.cfg.roi
+        heads = self.roi_heads
+        pool_feats = {n: feats[n] for n in POOL_LEVELS}
+        nb, p = boxes.shape[:2]
+        pooled = fpn_roi_align(pool_feats, boxes, cfg.box_pooler_resolution, cfg.pooler_sampling_ratio)
+        cls_logits, box_deltas = heads.box_predictor(heads.box_head(pooled.reshape(nb * p, -1)))
+        det = box_inference(cls_logits.reshape(nb, p, -1), box_deltas.reshape(nb, p, cfg.num_classes, 4), boxes,
+                            valid, image_hw, cfg)
+        if self.cfg.mask_on:
+            d = det["boxes"].shape[1]
+            mask_pooled = fpn_roi_align(pool_feats, det["boxes"], cfg.mask_pooler_resolution,
+                                        cfg.pooler_sampling_ratio)
+            logits = heads.mask_head(mask_pooled.reshape(nb * d, *mask_pooled.shape[2:]))
+            cls = det["classes"].clamp(0, cfg.num_classes - 1).reshape(nb * d)
+            sel = logits[torch.arange(nb * d, device=logits.device), cls]
+            det["masks"] = torch.sigmoid(sel).reshape(nb, d, *sel.shape[1:])
+        return det
+
+    @torch.no_grad()
+    def inference(self, images: torch.Tensor):
+        """images (B, H, W, 3) -> (detections, backbone maps); detections as
+        :meth:`detect` returns them."""
+        image_hw = tuple(images.shape[1:3])
+        feats = self.features(images)
+        boxes, _, valid = self.proposals(feats, image_hw)
+        return self.detect(feats, boxes, valid, image_hw), feats

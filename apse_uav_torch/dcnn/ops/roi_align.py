@@ -1,0 +1,76 @@
+"""ROIAlign on channels-last feature maps, as bilinear row gathers.
+
+Counterpart of the JAX reference's ``dcnn/ops/roi_align.py``
+(``roi_align_hwc``; torchvision's ``roi_align`` semantics):
+
+* each output bin averages ``sampling_ratio**2`` bilinear samples on a
+  regular grid inside the bin;
+* ``aligned=True`` shifts by half a pixel (detectron2 "ROIAlignV2"); without
+  it a ROI is at least 1 px wide and tall (torchvision's legacy rule);
+* torchvision's border band: samples with y or x in [-1, H] / [-1, W] are
+  clamped to the border, samples outside it return 0.
+
+Each sample gathers one contiguous C-vector of the (H, W, C) map.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def bilinear_gather_hwc(feat_hwc: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """feat (H, W, C); ys/xs (S,) sample coordinates -> (S, C)."""
+    h, w, c = feat_hwc.shape
+    out_of_range = (ys < -1.0) | (ys > h * 1.0) | (xs < -1.0) | (xs > w * 1.0)
+    y = ys.clamp(0.0, h - 1.0)
+    x = xs.clamp(0.0, w - 1.0)
+    y0 = torch.floor(y)
+    x0 = torch.floor(x)
+    y1 = torch.clamp(y0 + 1, max=h - 1.0)
+    x1 = torch.clamp(x0 + 1, max=w - 1.0)
+    ly = y - y0
+    lx = x - x0
+    y0i, x0i, y1i, x1i = (t.to(torch.int64) for t in (y0, x0, y1, x1))
+    flat = feat_hwc.reshape(h * w, c)
+    idx = (y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i)
+    wts = [(1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx), ly * lx]
+    val = flat[idx[0]] * wts[0][:, None]
+    for i, wt in zip(idx[1:], wts[1:]):
+        val = val + flat[i] * wt[:, None]
+    return torch.where(out_of_range[:, None], torch.zeros((), dtype=val.dtype, device=val.device), val)
+
+
+def sample_grid(n: int, s: int, device) -> torch.Tensor:
+    """(n * s,) float32 sample offsets in bins: bin i, sample a at i + (a + 0.5) / s."""
+    return (torch.arange(n, dtype=torch.float32, device=device)[:, None]
+            + (torch.arange(s, dtype=torch.float32, device=device)[None, :] + 0.5) / s).reshape(-1)
+
+
+def roi_align_hwc(feat_hwc: torch.Tensor, boxes: torch.Tensor, output_size, spatial_scale: float = 1.0,
+                  sampling_ratio: int = 2, aligned: bool = False) -> torch.Tensor:
+    """feat (H, W, C), boxes (N, 4) xyxy in image coordinates -> (N, C, oh, ow).
+    (The reference's ``plane`` modulation is not ported: the tracker crops
+    its features by mask in :func:`~apse_uav_torch.dcnn.tracker.detection_embeddings`.)"""
+    oh, ow = (output_size, output_size) if isinstance(output_size, int) else output_size
+    s = max(int(sampling_ratio), 1)
+    offset = 0.5 if aligned else 0.0
+    c = feat_hwc.shape[-1]
+    n = boxes.shape[0]
+    x1 = boxes[:, 0] * spatial_scale - offset
+    y1 = boxes[:, 1] * spatial_scale - offset
+    x2 = boxes[:, 2] * spatial_scale - offset
+    y2 = boxes[:, 3] * spatial_scale - offset
+    rw = x2 - x1
+    rh = y2 - y1
+    if not aligned:  # torchvision legacy: ROIs are at least 1 px
+        rw = rw.clamp(min=1.0)
+        rh = rh.clamp(min=1.0)
+    bin_h = rh / oh
+    bin_w = rw / ow
+    ys = y1[:, None] + sample_grid(oh, s, boxes.device)[None, :] * bin_h[:, None]  # (N, oh*s)
+    xs = x1[:, None] + sample_grid(ow, s, boxes.device)[None, :] * bin_w[:, None]  # (N, ow*s)
+    yy = ys[:, :, None].expand(n, oh * s, ow * s).reshape(-1)
+    xx = xs[:, None, :].expand(n, oh * s, ow * s).reshape(-1)
+    vals = bilinear_gather_hwc(feat_hwc, yy, xx)  # (N*S, C)
+    vals = vals.reshape(n, oh, s, ow, s, c).mean(dim=(2, 4))  # (N, oh, ow, C)
+    return vals.permute(0, 3, 1, 2)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from apse_uav_torch.aruco.dictionary import marker_image
+from apse_uav_torch.dcnn.models.resnet import STAGE_BLOCKS
 from apse_uav_torch.device import resolve_device
 
 MARKER_LEN = 0.55
@@ -160,3 +161,104 @@ def labeling_masks(win: int) -> dict[str, np.ndarray]:
         "all_dark": np.ones((win, win), bool),
         "empty": np.zeros((win, win), bool),
     }
+
+
+# Background logit bias of the synthetic class head: only the tail of the
+# proposals scores above 0.5, so the detections are few and their scores far
+# apart.  Mask logit bias: masks are on over nearly the whole box, so no mask
+# cell sits at the 0.5 threshold.
+CLS_BG_BIAS = 4.0
+MASK_BIAS = 5.0
+
+
+def detectron2_checkpoint(seed: int, depth: int, num_classes: int, mask_on: bool = True) -> dict[str, np.ndarray]:
+    """A detectron2 GeneralizedRCNN (Mask R-CNN R-FPN, the model zoo's widths:
+    256 FPN channels, 3 anchors a cell, 7x7 box pooling, 1024-d box head)
+    state dict of float32 numpy arrays, drawn with
+    ``numpy.random.default_rng(seed)``.
+
+    Its statistics keep a deep trunk finite and O(1) and its outputs decisive,
+    so that two implementations agree on every discrete choice:
+
+    * He-normal convolutions; the stem's frozen-BN variance divides out the
+      raw pixel scale (normalised pixels are O(100));
+    * frozen BN with random statistics (scale ~1, bias, mean, variance), and
+      scale 0.2 on each block's last BN so residual sums grow slowly;
+    * objectness and class logits spread to a standard deviation of ~2-4
+      (detectron2's own 0.01 / 0.001 initialisations leave every class score
+      near 1 / (K + 1), where top-k and NMS order would follow f32 rounding
+      noise), class and mask rows of zero mean, a background bias
+      (``CLS_BG_BIAS``) that keeps the detections few and apart, a mask bias
+      (``MASK_BIAS``) that keeps mask cells away from 0.5; small box deltas,
+      so boxes move little with rounding.
+    """
+    rng = np.random.default_rng(seed)
+    fpn_channels, fc_dim, num_anchors, box_res = 256, 1024, 3, 7
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def centred(shape, std):
+        """Rows of zero mean: the post-ReLU features' common positive mean
+        then adds no shared offset to every logit."""
+        w = normal(shape, std)
+        return w - w.mean(axis=1, keepdims=True)
+
+    def conv(out_ch, in_ch, k, gain=2.0):
+        return normal((out_ch, in_ch, k, k), np.sqrt(gain / (in_ch * k * k)))
+
+    out: dict[str, np.ndarray] = {}
+
+    def bn(prefix, ch, scale=1.0, var_scale=1.0):
+        out[f"{prefix}.weight"] = (scale * (1.0 + 0.1 * rng.standard_normal(ch))).astype(np.float32)
+        out[f"{prefix}.bias"] = normal(ch, 0.1)
+        out[f"{prefix}.running_mean"] = normal(ch, 0.1 * np.sqrt(var_scale))
+        out[f"{prefix}.running_var"] = (var_scale * rng.uniform(0.5, 1.5, ch)).astype(np.float32)
+
+    bb = "backbone.bottom_up"
+    out[f"{bb}.stem.conv1.weight"] = conv(64, 3, 7)
+    bn(f"{bb}.stem.conv1.norm", 64, var_scale=64.0**2)
+    in_ch = 64
+    for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
+        out_ch, mid = 256 * 2**stage, 64 * 2**stage
+        for b in range(n_blocks):
+            p = f"{bb}.res{stage + 2}.{b}"
+            cin = in_ch if b == 0 else out_ch
+            for name, (o, i, k) in (("conv1", (mid, cin, 1)), ("conv2", (mid, mid, 3)), ("conv3", (out_ch, mid, 1))):
+                out[f"{p}.{name}.weight"] = conv(o, i, k)
+                bn(f"{p}.{name}.norm", o, scale=0.2 if name == "conv3" else 1.0)
+            if b == 0:
+                out[f"{p}.shortcut.weight"] = conv(out_ch, cin, 1, gain=1.0)
+                bn(f"{p}.shortcut.norm", out_ch)
+        in_ch = out_ch
+    for i, c in enumerate((256, 512, 1024, 2048)):
+        out[f"backbone.fpn_lateral{i + 2}.weight"] = conv(fpn_channels, c, 1, gain=1.0)
+        out[f"backbone.fpn_lateral{i + 2}.bias"] = normal(fpn_channels, 0.1)
+        out[f"backbone.fpn_output{i + 2}.weight"] = conv(fpn_channels, fpn_channels, 3, gain=0.25)
+        out[f"backbone.fpn_output{i + 2}.bias"] = normal(fpn_channels, 0.1)
+    rpn = "proposal_generator.rpn_head"
+    out[f"{rpn}.conv.weight"] = conv(fpn_channels, fpn_channels, 3)
+    out[f"{rpn}.conv.bias"] = np.zeros(fpn_channels, np.float32)
+    out[f"{rpn}.objectness_logits.weight"] = normal((num_anchors, fpn_channels, 1, 1), 3.0 / np.sqrt(fpn_channels))
+    out[f"{rpn}.objectness_logits.bias"] = np.zeros(num_anchors, np.float32)
+    out[f"{rpn}.anchor_deltas.weight"] = normal((4 * num_anchors, fpn_channels, 1, 1), 0.02 / np.sqrt(fpn_channels))
+    out[f"{rpn}.anchor_deltas.bias"] = np.zeros(4 * num_anchors, np.float32)
+    in_dim = fpn_channels * box_res * box_res
+    out["roi_heads.box_head.fc1.weight"] = normal((fc_dim, in_dim), np.sqrt(2.0 / in_dim))
+    out["roi_heads.box_head.fc1.bias"] = np.zeros(fc_dim, np.float32)
+    out["roi_heads.box_head.fc2.weight"] = normal((fc_dim, fc_dim), np.sqrt(2.0 / fc_dim))
+    out["roi_heads.box_head.fc2.bias"] = np.zeros(fc_dim, np.float32)
+    out["roi_heads.box_predictor.cls_score.weight"] = centred((num_classes + 1, fc_dim), 2.0 / np.sqrt(fc_dim))
+    out["roi_heads.box_predictor.cls_score.bias"] = np.asarray([0.0] * num_classes + [CLS_BG_BIAS], np.float32)
+    out["roi_heads.box_predictor.bbox_pred.weight"] = normal((4 * num_classes, fc_dim), 0.1 / np.sqrt(fc_dim))
+    out["roi_heads.box_predictor.bbox_pred.bias"] = np.zeros(4 * num_classes, np.float32)
+    if mask_on:
+        mh = "roi_heads.mask_head"
+        for i in range(1, 5):
+            out[f"{mh}.mask_fcn{i}.weight"] = conv(fpn_channels, fpn_channels, 3)
+            out[f"{mh}.mask_fcn{i}.bias"] = np.zeros(fpn_channels, np.float32)
+        out[f"{mh}.deconv.weight"] = normal((fpn_channels, fpn_channels, 2, 2), np.sqrt(2.0 / fpn_channels))
+        out[f"{mh}.deconv.bias"] = np.zeros(fpn_channels, np.float32)
+        out[f"{mh}.predictor.weight"] = centred((num_classes, fpn_channels), 1 / np.sqrt(fpn_channels))[..., None, None]
+        out[f"{mh}.predictor.bias"] = np.full(num_classes, MASK_BIAS, np.float32)
+    return out

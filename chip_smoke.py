@@ -44,6 +44,23 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    function.
 6. gpu-cpu      -- the first 2 frames through the two-pass port on the CPU
                    (plain versions) against the card's run.
+7. tracker      -- the DCNN tracking path: the same 8 frames (HWC, numpy) through
+                   ``track_uav``'s own loop (``cli.track_uav.track``) in batches of
+                   4 with ``--preprocess data/cam_params.json`` (K3's RGB mode),
+                   Mask R-CNN R101-FPN at full width (``uav_tracker_config()``) from
+                   a seeded detectron2 checkpoint (its background bias set from
+                   the frames, ``calibrate_background``) saved as ``.pth`` under
+                   ``OUT_DIR`` and loaded through ``--weights`` (removed after),
+                   the CSV written under ``OUT_DIR``; counts set to 0 just
+                   before.  K3-RGB must launch, every frame must hold a
+                   detection above the confidence and a track, ids >= 1 and
+                   never reused, 8 CSV rows.  Then ms per batch of each stage,
+                   frames/s, one batch profiled (device busy, idle share,
+                   launches), its host syncs (``set_sync_debug_mode("warn")``)
+                   and peak memory; and the first frame on the CPU (plain
+                   versions) against the card: p2-p6 within 1e-4 of each map's
+                   max-abs, the same valid ids and classes, boxes within 0.5 px,
+                   the same CSV row.
 
 Prints the card's name and power limit and a ``kernels`` JSON line before
 the last line; the last line is the ``{"ok": true, "device": ...}`` object.
@@ -53,6 +70,7 @@ Exits non-zero without a result when no CUDA device is available or when the
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,6 +84,12 @@ OUT_DIR = os.path.join(REPO, "chiprun_out")  # listed in .gitignore
 BATCH = 8
 W, H = 3840, 2160
 LEDS = 0b1010
+# The tracker phase: frames per batch (track_uav's default) and the detection
+# confidence (its default and uav_tracker_config()'s score threshold).
+TRACK_BATCH = 4
+TRACK_CONFIDENCE = 0.5
+# What torch.cuda.set_sync_debug_mode("warn") says at each host sync.
+SYNC_WARNING = "called a synchronizing CUDA operation"
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and the non-tensor
 # 32-bit rate, used for the bound of every kernel here.
 PEAK_BYTES = 3.35e12
@@ -171,11 +195,11 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def profile_process(pipe, frames, carry, call_ms: float) -> dict:
-    """Device time over one ``process`` call (torch.profiler, CUPTI): the sum
-    of its kernels' times, their number, the device's idle share of the
-    unprofiled call time ``call_ms``, and the largest entries by PyTorch op
-    and by kernel."""
+def profile_call(fn, call_ms: float) -> dict:
+    """Device time over one call of fn (torch.profiler, CUPTI): the sum of its
+    kernels' times, their number, the device's idle share of the unprofiled
+    call time ``call_ms``, and the largest entries by PyTorch op and by
+    kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -183,9 +207,9 @@ def profile_process(pipe, frames, carry, call_ms: float) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # The trace missed the first kernel of the window (the single-pass
         # front's 3 ms K3 launch) until one tiny op ran ahead of it.
-        torch.ones(1, device=frames.device).add_(1)
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-        pipe.process(frames, carry, first=True)
+        fn()
         torch.cuda.synchronize()
 
     def dev_ms(e):
@@ -270,6 +294,259 @@ def gpu_vs_cpu(pipe, cpipe, cfg, two, dev) -> dict:
     return res
 
 
+def tracker_stages(tracker, pre, frames_np, dev) -> dict:
+    """Host-clock ms per batch of each stage of the tracker path on the card
+    (each stage alone, on the previous stage's output; the association from
+    the state the batch itself left, as in a video whose vehicles stay in
+    view)."""
+    import torch
+
+    from apse_uav_torch.dcnn.engines import full_fp32
+
+    pred, model = tracker.predictor, tracker.predictor.model
+    hw = pred.pad_hw
+    x = torch.from_numpy(frames_np).to(dev)
+    rgb, _ = pre(x, with_gray=False)
+    resized = pred.resize(rgb)
+
+    def quiet(fn):
+        def run():
+            with torch.no_grad(), full_fp32():
+                return fn()
+        return run
+
+    feats = quiet(lambda: model.features(resized))()
+    boxes, _, valid = quiet(lambda: model.proposals(feats, hw))()
+    dets = pred.postprocess(quiet(lambda: model.detect(feats, boxes, valid, hw))())
+    det_cap, emb = tracker.embed(dets, feats)
+    tracker.associate(det_cap, emb)
+    state0 = tracker.state
+
+    def associate():
+        tracker.state = state0
+        return tracker.associate(det_cap, emb)
+
+    times = {"upload": wall_ms(lambda: torch.from_numpy(frames_np).to(dev)),
+             "preprocessor": wall_ms(lambda: pre(x, with_gray=False)),
+             "resize": wall_ms(lambda: pred.resize(rgb)),
+             "backbone": wall_ms(quiet(lambda: model.features(resized))),
+             "rpn_proposals": wall_ms(quiet(lambda: model.proposals(feats, hw))),
+             "roi_heads_masks": wall_ms(quiet(lambda: model.detect(feats, boxes, valid, hw))),
+             "embeddings": wall_ms(lambda: tracker.embed(dets, feats)),
+             "association": wall_ms(associate)}
+    tracker.state = state0
+    return {k: round(v, 3) for k, v in times.items()}
+
+
+def count_syncs(fn) -> int:
+    """Device-to-host synchronisations during fn, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def calibrate_background(ckpt: dict, cfg, pre, frames_np, dev, per_frame: int = 10) -> dict:
+    """Set the synthetic checkpoint's background logit bias from the frames.
+
+    With random weights every proposal's best class clears the confidence
+    only by the margin of its logits over the background's; most proposals
+    lie on the same asphalt, so their margins crowd together, and where the
+    threshold falls in a crowd, which detections pass (and in which order)
+    follows float rounding.  For each proposal of each frame this computes
+    the largest shift of the background bias that still lets its best class
+    clear 0.5 (softmax, float64), and puts the bias in the middle of the
+    widest gap between those shifts just below the ``per_frame``-th largest
+    of the frame that has fewest: each frame keeps >= ``per_frame``
+    candidates before NMS and none sits near the threshold.  Returns the
+    calibration."""
+    import torch
+
+    from apse_uav_torch.dcnn.engines import TrackPredictor, full_fp32
+    from apse_uav_torch.dcnn.models.roi_heads import POOL_LEVELS, fpn_roi_align
+
+    h, w = frames_np.shape[1:3]
+    pred = TrackPredictor(cfg, ckpt, (h, w), device=dev)
+    model, heads, roi = pred.model, pred.model.roi_heads, cfg.roi
+    shifts = []
+    with torch.no_grad(), full_fp32():
+        for b in range(0, frames_np.shape[0], TRACK_BATCH):
+            x = pre(torch.from_numpy(frames_np[b:b + TRACK_BATCH]).to(dev), with_gray=False)[0]
+            feats = model.features(pred.resize(x))
+            boxes, _, valid = model.proposals(feats, pred.pad_hw)
+            pooled = fpn_roi_align({n: feats[n] for n in POOL_LEVELS}, boxes, roi.box_pooler_resolution,
+                                   roi.pooler_sampling_ratio)
+            logits, _ = heads.box_predictor(heads.box_head(pooled.reshape(-1, pooled[0, 0].numel())))
+            lg = logits.reshape(*boxes.shape[:2], -1).double()
+            fg, bg = lg[..., :-1], lg[..., -1]
+            k = fg.argmax(-1, keepdim=True)
+            best = fg.gather(-1, k)[..., 0]
+            rest = torch.logsumexp(fg.scatter(-1, k, float("-inf")), -1)
+            shift = torch.log(torch.clamp(torch.exp(best) - torch.exp(rest), min=1e-300)) - bg
+            shifts += list(torch.where(valid & (best > rest), shift, torch.full_like(shift, float("-inf"))).cpu())
+    ranked = [torch.sort(s, descending=True).values for s in shifts]
+    target = min(float(s[per_frame - 1]) for s in ranked)
+    near = np.sort(np.concatenate([s[(s < target) & (s > target - 1.0)].numpy() for s in ranked] + [[target]]))
+    gaps = np.diff(near)
+    i = int(np.argmax(gaps)) if len(gaps) else 0
+    delta = float((near[i] + near[i + 1]) / 2) if len(gaps) else target - 0.5
+    key = "roi_heads.box_predictor.cls_score.bias"
+    bias = ckpt[key].copy()
+    bias[-1] += delta
+    ckpt[key] = bias
+    return {"background_bias": float(bias[-1]), "margin": float(gaps[i] / 2) if len(gaps) else 0.5,
+            "candidates_per_frame": [int((s > delta).sum()) for s in ranked]}
+
+
+def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dict:
+    """The DCNN tracking path at full width: ``track_uav``'s own loop over the
+    frames (``--preprocess``, a seeded detectron2 checkpoint through
+    ``--weights``, batches of TRACK_BATCH, the CSV under OUT_DIR), launch
+    counts set to 0 just before; then each stage timed, one batch profiled,
+    its syncs counted, and the first frame run again on the CPU (plain
+    versions) against the card."""
+    import torch
+
+    from apse_uav_torch import _build
+    from apse_uav_torch.cli.track_uav import build_parser, track
+    from apse_uav_torch.dcnn.config import TrackerConfig, mask_rcnn_r50_fpn, uav_tracker_config
+    from apse_uav_torch.dcnn.engines import RcnnTracker
+    from apse_uav_torch.dcnn.models.association import init_weights
+    from apse_uav_torch.dcnn.ops import loops
+    from apse_uav_torch.preproc import cuda_remap, remap
+    from apse_uav_torch.utils.mask_geometry import dcnn_log_line
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint
+
+    n, (h, w) = frames_np.shape[0], frames_np.shape[1:3]
+    cam_json = os.path.join(REPO, "data", "cam_params.json")
+    csv_path = os.path.join(OUT_DIR, "chip_smoke_dcnn.csv")
+    weights_path = os.path.join(OUT_DIR, "tracker_checkpoint.pth")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    # The CLI's model: R101 is uav_tracker_config(); R50 (CPU rehearsals) alike.
+    base = mask_rcnn_r50_fpn(4) if depth == 50 else uav_tracker_config(4)
+    cfg = dataclasses.replace(base, roi=dataclasses.replace(base.roi, score_thresh_test=TRACK_CONFIDENCE))
+    tcfg = TrackerConfig()
+    assoc = init_weights(cfg.fpn_channels * tcfg.roi_size**2, tcfg.embedding_dim)
+    pre = remap.Preprocessor(mtx, dist, (w, h), device=dev)
+    t0 = time.perf_counter()
+    ckpt = detectron2_checkpoint(0, depth, 4)
+    calibration = calibrate_background(ckpt, cfg, pre, frames_np, dev)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in ckpt.items()}}, weights_path)
+    ckpt_s = time.perf_counter() - t0
+    snaps = {}
+    args = build_parser().parse_args(["--images", "unused", "--weights", weights_path, "--depth", str(depth),
+                                      "--preprocess", cam_json, "--log_file", csv_path, "--batch", str(TRACK_BATCH),
+                                      "--confidence", str(TRACK_CONFIDENCE), "--device", dev.type])
+    try:
+        _build.reset_counts()
+        loops.reset_checks()
+        t0 = time.perf_counter()
+        res = track(args, ((i, frames_np[i]) for i in range(n)), on_frame=lambda i, r: snaps.__setitem__(i, r))
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts, cli_checks = dict(_build.launches), loops.checks["count"]
+    finally:
+        os.remove(weights_path)
+    if counts.get(cuda_remap.K3_RGB, 0) == 0:
+        raise SmokeFailure(f"{cuda_remap.K3_RGB} not launched on the tracker path (counts {counts})")
+    with open(csv_path) as f:
+        rows = f.read().splitlines()[2:]
+    if len(rows) != n or res["rows"] != n:
+        raise SmokeFailure(f"the CSV has {len(rows)} rows for {n} frames")
+    seen: set = set()
+    for i in range(n):
+        ids = snaps[i]["ids"][snaps[i]["valid"]]
+        if len(ids) == 0:
+            raise SmokeFailure(f"frame {i}: no track")
+        if (ids < 1).any() or len(set(ids.tolist())) != len(ids):
+            raise SmokeFailure(f"frame {i}: ids {ids.tolist()}")
+        new = set(ids.tolist()) - seen
+        if seen and new and min(new) <= max(seen):
+            raise SmokeFailure(f"frame {i}: new ids {sorted(new)} not above the earlier ones (max {max(seen)})")
+        seen |= new
+
+    # The stages on the card, the detections of every frame, a batch end to end.
+    tracker = RcnnTracker(cfg, tcfg, ckpt, assoc, (h, w), device=dev)
+    batch_np = frames_np[:TRACK_BATCH]
+    stages = tracker_stages(tracker, pre, batch_np, dev)
+    n_dets = []
+    for b in range(0, n, TRACK_BATCH):
+        dets, _ = tracker.predictor(pre(torch.from_numpy(frames_np[b:b + TRACK_BATCH]).to(dev), with_gray=False)[0])
+        n_dets += (dets["valid"] & (dets["scores"] > TRACK_CONFIDENCE)).sum(dim=1).tolist()
+    if min(n_dets) < 1:
+        raise SmokeFailure(f"detections above {TRACK_CONFIDENCE} per frame: {n_dets}")
+
+    def batch():
+        """One batch of the CLI's path, upload to snapshots on the host; the
+        track state carries over, as from one batch of a video to the next."""
+        x = torch.from_numpy(batch_np).to(dev)
+        return tracker.materialize(tracker.process_frames_async(pre(x, with_gray=False)[0]))
+
+    batch_ms = wall_ms(batch)
+    torch.cuda.reset_peak_memory_stats()
+    batch()
+    peak = torch.cuda.max_memory_allocated()
+    loops.reset_checks()
+    syncs = count_syncs(batch)
+    checks = loops.checks["count"]
+    x = torch.from_numpy(batch_np).to(dev)
+    loops.reset_checks()
+    syncs_dispatch = count_syncs(lambda: tracker.process_frames_async(pre(x, with_gray=False)[0]))
+    checks_dispatch = loops.checks["count"]
+    profile = profile_call(batch, batch_ms)
+    log({"phase": "tracker", "frames": n, "size": [w, h], "batch": TRACK_BATCH, "depth": depth,
+         "confidence": TRACK_CONFIDENCE, "calibration": calibration, "checkpoint_s": round(ckpt_s, 3),
+         "cli_s": round(cli_s, 3), "cli_frames_per_s": round(n / cli_s, 3), "launches": counts,
+         "cli_convergence_checks": cli_checks, "batch_ms": round(batch_ms, 3),
+         "frames_per_s": round(TRACK_BATCH * 1e3 / batch_ms, 3), "stage_ms": stages, "syncs_per_batch": syncs,
+         "syncs_dispatch": syncs_dispatch, "convergence_checks_per_batch": checks,
+         "convergence_checks_dispatch": checks_dispatch, "peak_mem_gib": round(peak / 2**30, 3),
+         "detections_above_conf": n_dets, "tracks": [int(snaps[i]["valid"].sum()) for i in range(n)],
+         "max_id": max(seen), "csv_rows": len(rows), "card": card})
+    log({"phase": "tracker_profile", **profile})
+
+    # The first frame again on the CPU, plain versions, against the card.
+    t0 = time.perf_counter()
+    cpre = remap.Preprocessor(mtx, dist, (w, h), device="cpu")
+    ctracker = RcnnTracker(cfg, tcfg, ckpt, assoc, (h, w), device="cpu")
+    x0 = torch.from_numpy(frames_np[:1])
+    cdets, cfeats = ctracker.predictor(cpre(x0, with_gray=False)[0])
+    crecent = {k: v[0] for k, v in ctracker.materialize((cdets, ctracker.associate(*ctracker.embed(cdets, cfeats))))
+               .items()}
+    _, gfeats = tracker.predictor(pre(x0.to(dev), with_gray=False)[0])
+    map_err = {k: float((gfeats[k].cpu() - cfeats[k]).abs().max() / cfeats[k].abs().max()) for k in
+               ("p2", "p3", "p4", "p5", "p6")}
+    g, v = snaps[0], snaps[0]["valid"]
+    same = (np.array_equal(v, crecent["valid"]) and np.array_equal(g["ids"][v], crecent["ids"][v])
+            and np.array_equal(g["classes"][v], crecent["classes"][v]))
+    box_err = float(np.abs(g["boxes"][v] - crecent["boxes"][v]).max()) if same else None
+    crow, _ = dcnn_log_line(crecent, args.host_id, 0, (h, w))
+    res = {"seconds": round(time.perf_counter() - t0, 3), "map_rel_err": map_err, "same_ids_classes": same,
+           "box_err_px": box_err, "csv_row_equal": crow == rows[0], "tracks": int(crecent["valid"].sum())}
+    log({"phase": "tracker_gpu_cpu", **res, "card": card})
+    if max(map_err.values()) > 1e-4:
+        raise SmokeFailure(f"tracker GPU vs CPU: p2-p6 differ by {map_err} of their max-abs (limit 1e-4)")
+    if not same:
+        raise SmokeFailure(f"tracker GPU vs CPU: valid ids/classes differ: {g['ids'][v].tolist()} "
+                           f"{g['classes'][v].tolist()} vs {crecent['ids'][crecent['valid']].tolist()} "
+                           f"{crecent['classes'][crecent['valid']].tolist()}")
+    if box_err > 0.5:
+        raise SmokeFailure(f"tracker GPU vs CPU: boxes differ by {box_err} px (limit 0.5)")
+    if crow != rows[0]:
+        raise SmokeFailure(f"tracker GPU vs CPU: CSV rows differ:\n{rows[0]}\n{crow}")
+    return res
+
+
 def scene_specs(i: int):
     from apse_uav_torch.utils.synthetic import MarkerSpec
 
@@ -328,7 +605,7 @@ def main() -> int:
                                      cuda_remap.K4, cuda_pool.NAME))
     first_s = time.perf_counter() - t0
     layers = path_times(pipe, frames, cfg, dev)
-    profile = profile_process(pipe, frames, init_carry(cfg, dev), layers["process_ms"])
+    profile = profile_call(lambda: pipe.process(frames, init_carry(cfg, dev), first=True), layers["process_ms"])
     os.makedirs(OUT_DIR, exist_ok=True)
     with csv_io.ResultsWriter(os.path.join(OUT_DIR, "chip_smoke_results.csv"), False) as writer:
         for i in range(BATCH):
@@ -344,7 +621,7 @@ def main() -> int:
     spipe, sout, scounts = run_path(lambda: ArucoPipeline(mtx, dist, (W, H), scfg, device=dev), frames, scfg, dev,
                                     (cuda_remap.TABLE, cuda_labeling.NAME, cuda_proposals.NAME, cuda_remap.K3))
     slayers = path_times(spipe, frames, scfg, dev)
-    sprofile = profile_process(spipe, frames, init_carry(scfg, dev), slayers["process_ms"])
+    sprofile = profile_call(lambda: spipe.process(frames, init_carry(scfg, dev), first=True), slayers["process_ms"])
     log({"phase": "single_pass", "frames": BATCH, "size": [W, H],
          "frames_per_s": round(BATCH * 1e3 / slayers["process_ms"], 3), **slayers, "launches": scounts,
          "detected": sout["detected"].tolist(), "leds": sout["leds"].tolist(),
@@ -605,6 +882,10 @@ def main() -> int:
     # -- 6. GPU against CPU, two-pass ---------------------------------------------
     cpipe = ArucoPipeline(mtx, dist, (W, H), cfg, device="cpu")
     log({"phase": "gpu-cpu", **gpu_vs_cpu(pipe, cpipe, cfg, frames[:2], dev)})
+    del cpipe, rand, rand_hwc, rand_pooled, frames_f32
+
+    # -- 7. the DCNN tracking path (track_uav) at full width ----------------------
+    tracker_phase(frames_hwc.cpu().numpy(), mtx, dist, card, dev)
 
     print(card)
     log({"kernels": kernels})

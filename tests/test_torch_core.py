@@ -43,6 +43,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import apse_uav_torch.preproc.cuda_pool, apse_uav_torch.preproc.cuda_remap\n"
         "from apse_uav_torch.preproc.remap import Preprocessor\n"
         "from apse_uav_torch.aruco.detector import ArucoDetector\n"
+        "import apse_uav_torch.cli.track_uav, apse_uav_torch.dcnn.engines, apse_uav_torch.dcnn.weights\n"
+        "import apse_uav_torch.utils.mask_geometry, apse_uav_torch.utils.visualizer\n"
+        "from apse_uav_torch.dcnn.engines import RcnnTracker, TrackPredictor\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'apse_uav_tpu'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

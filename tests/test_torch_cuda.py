@@ -288,3 +288,65 @@ def test_single_pass_cuda_matches_cpu(cam, frames):
         assert torch.equal(g[key].cpu(), c[key]), key
     assert c["measured"].all()
     assert float((g["corners"].cpu() - c["corners"]).abs().max()) <= 0.05
+
+
+def _tiny_tracker(device):
+    """The CPU parity tests' small tracker (R50-FPN, 64 short side, 4
+    detections, 3 tracked) from a seeded checkpoint and re-ID head."""
+    import dataclasses
+
+    from apse_uav_torch.dcnn.config import TrackerConfig, mask_rcnn_r50_fpn
+    from apse_uav_torch.dcnn.engines import RcnnTracker
+    from apse_uav_torch.dcnn.models.association import init_weights
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint
+
+    cfg = mask_rcnn_r50_fpn(2)
+    cfg = dataclasses.replace(
+        cfg, rpn=dataclasses.replace(cfg.rpn, pre_nms_topk_test=32, post_nms_topk_test=16),
+        roi=dataclasses.replace(cfg.roi, detections_per_image=4, score_thresh_test=0.0),
+        input=dataclasses.replace(cfg.input, min_size_test=64, max_size_test=128))
+    tcfg = TrackerConfig(max_tracks=8, max_detections=3, embedding_dim=8, roi_size=4)
+    return RcnnTracker(cfg, tcfg, detectron2_checkpoint(0, 50, 2), init_weights(256 * 16, 8), (100, 160),
+                       device=device)
+
+
+def test_tracker_cuda_matches_cpu(dev):
+    """The DCNN tracker on the card (cuDNN/cuBLAS in float32, no TF32) against
+    its CPU run on 3 frames of 100x160: identical valid, ids and classes,
+    boxes within 0.05 px, masks within 1e-3, identical CSV rows."""
+    from apse_uav_torch.utils.mask_geometry import dcnn_log_line
+
+    frames = np.random.default_rng(1).integers(0, 255, (3, 100, 160, 3), np.uint8)
+    g = _tiny_tracker("cuda").process_frames(frames)
+    c = _tiny_tracker("cpu").process_frames(frames)
+    for t in range(3):
+        for k in ("valid", "ids", "classes"):
+            np.testing.assert_array_equal(g[k][t], c[k][t], err_msg=f"frame {t} {k}")
+        v = c["valid"][t]
+        np.testing.assert_allclose(g["boxes"][t][v], c["boxes"][t][v], rtol=0, atol=0.05)
+        np.testing.assert_allclose(g["masks"][t][v], c["masks"][t][v], rtol=0, atol=1e-3)
+        assert dcnn_log_line({k: a[t] for k, a in g.items()}, 2, t, (100, 160)) == \
+            dcnn_log_line({k: a[t] for k, a in c.items()}, 2, t, (100, 160))
+
+
+def test_tracker_dispatch_syncs_only_to_test_convergence(dev):
+    """Dispatching a batch on the card synchronises with the host only at the
+    NMS and auction convergence tests (counted by ops.loops)."""
+    import warnings
+
+    from apse_uav_torch.dcnn.ops import loops
+
+    tracker = _tiny_tracker("cuda")
+    x = torch.from_numpy(np.random.default_rng(2).integers(0, 255, (2, 100, 160, 3), np.uint8)).to(dev)
+    tracker.process_frames(x)
+    loops.reset_checks()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tracker.process_frames_async(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+    assert syncs == loops.checks["count"] > 0, (syncs, loops.checks["count"])

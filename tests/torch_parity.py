@@ -9,6 +9,9 @@ libraries round differently in the last bit, so a 1-ulp difference there can
 move a refined corner by tenths of a pixel in either package.  These helpers
 let a test hold the continuous part (coarse corners) and the discontinuous
 part (refinement from one and the same start) each to a tight tolerance.
+
+The DCNN helpers at the end build the small Mask R-CNN that the DCNN parity
+tests share and load one detectron2-format checkpoint into both packages.
 """
 
 from __future__ import annotations
@@ -83,3 +86,57 @@ def corner_errors(gray: np.ndarray, center, size, k: int, got: np.ndarray, want:
     restarted, _, _ = port_candidate(gray, center, size, ps, coarse_ref)
     return {"direct": float(np.abs(got - want).max()), "coarse": float(np.abs(coarse_port - coarse_ref).max()),
             "restarted": float(np.abs(restarted - want).max()), "replay": float(np.abs(own - got).max())}
+
+
+# -- DCNN --------------------------------------------------------------------
+
+# Frames of the tracker's end-to-end tests: (T, H, W, 3) u8 from a seed.
+E2E_HW = (100, 160)
+
+
+def e2e_frames(n: int = 3, seed: int = 1) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 255, (n, *E2E_HW, 3), np.uint8)
+
+
+def tiny_dcnn_config(num_classes: int = 2, score_thresh: float = 0.0):
+    """The JAX engine tests' small Mask R-CNN R50-FPN: RPN 32 -> 16
+    proposals, 4 detections, inputs resized to a 64 short side (max 128)."""
+    import dataclasses
+
+    from apse_uav_tpu.dcnn.config import mask_rcnn_r50_fpn
+
+    cfg = mask_rcnn_r50_fpn(num_classes=num_classes)
+    return dataclasses.replace(
+        cfg,
+        rpn=dataclasses.replace(cfg.rpn, pre_nms_topk_test=32, post_nms_topk_test=16, batch_size_per_image=16),
+        roi=dataclasses.replace(cfg.roi, num_classes=num_classes, detections_per_image=4,
+                                score_thresh_test=score_thresh),
+        input=dataclasses.replace(cfg.input, min_size_test=64, max_size_test=128),
+    )
+
+
+def jax_mask_rcnn(cfg, checkpoint: dict):
+    """The JAX MaskRCNN and its parameters from a detectron2 checkpoint
+    (``map_detectron2_weights`` + ``load_into_params`` on the abstract init
+    tree: every parameter must come from the checkpoint)."""
+    import jax
+
+    from apse_uav_tpu.dcnn import weights as W
+    from apse_uav_tpu.dcnn.models.mask_rcnn import MaskRCNN
+
+    model = MaskRCNN(cfg=cfg)
+    abstract = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), mode="inference"))["params"]
+    params, missing, unused = W.load_into_params(abstract, W.map_detectron2_weights(checkpoint, cfg.depth,
+                                                                                     cfg.mask_on))
+    assert not missing and not unused, (missing[:3], unused[:3])
+    return model, params
+
+
+def port_config(jcfg):
+    """The port's config of a JAX one (through ``dataclasses.asdict``)."""
+    import dataclasses
+
+    from apse_uav_torch import convert
+
+    return convert.model_config(dataclasses.asdict(jcfg))
