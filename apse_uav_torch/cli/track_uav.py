@@ -7,11 +7,15 @@ ArUco pipeline reads, and optionally writes visualised frames; plus
 ``--device cuda|cpu`` (``cuda`` raises when no card is visible, never falls
 back).  With ``--preprocess`` the port's ``Preprocessor`` (kernel K3's RGB
 mode on the card) undistorts and gamma-corrects each batch, which stays on
-the device.  TF32 is switched off, so the float32 model runs in float32.
-``--bf16`` and ``--assoc_weights`` are not ported yet and raise.  Without
-``--assoc_weights`` the re-ID head takes seeded weights
-(``models.association.init_weights``), as the reference takes its own
-initialisation.
+the device.  TF32 is switched off, so the float32 model runs in float32;
+``--bf16`` runs the backbone and heads in bfloat16 with float32 parameters,
+as the reference's ``--bf16`` does.  ``--assoc_weights`` names a checkpoint
+of the port's format (``apse_uav_torch.train.checkpoint``; a reference
+checkpoint converts through ``convert.checkpoint_state``), whose ``params``
+are the re-ID head's.  Without it, or if the path does not exist (a warning
+then says so), the re-ID head takes the reference's default: its flax
+initialisation under ``PRNGKey(1)``, reproduced without JAX
+(``models.association.head_weights``), so the ids match the reference's.
 
 Usage:
     python -m apse_uav_torch.cli.track_uav --video seq.mp4 \
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
 import time
 
@@ -35,7 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--video", help="input video path")
     src.add_argument("--images", help="input image directory")
     p.add_argument("--weights", required=True, help="detector checkpoint (.pkl/.pth)")
-    p.add_argument("--assoc_weights", default=None, help="association head checkpoint (not ported yet: raises)")
+    p.add_argument("--assoc_weights", default=None,
+                   help="association head checkpoint (the port's format, e.g. workdir/bestAP); default: the "
+                        "reference's default head (flax init under PRNGKey(1))")
     p.add_argument("--depth", type=int, default=101, choices=(50, 101))
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--confidence", type=float, default=0.5)
@@ -45,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--start_frame", type=int, default=0)
     p.add_argument("--stop_frame", type=int, default=None)
     p.add_argument("--batch", type=int, default=4, help="frames per detector batch")
-    p.add_argument("--bf16", action="store_true", help="bf16 compute (not ported yet: raises)")
+    p.add_argument("--bf16", action="store_true", help="bf16 backbone/head compute (f32 params)")
     p.add_argument("--preprocess", default=None, help="cam_params.json: undistort+gamma frames first")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default; raises when no card is visible) or cpu (plain PyTorch path)")
@@ -81,50 +88,130 @@ def _frames(args):
             yield idx, cv2.imread(os.path.join(args.images, name))
 
 
-def track(args, frames, on_frame=None) -> dict:
-    """The CLI's loop over ``frames``, an iterable of (idx, (H, W, 3) u8 BGR
-    numpy frame): batches of ``args.batch`` frames, dispatched one batch ahead
-    of the host's consumption (CSV rows, images).  ``on_frame(idx, recent)``,
-    if given, receives each frame's snapshot (numpy).  Writes
-    ``args.log_file``; returns {"frames", "rows", "max_obj_id", "seconds"}."""
+def model_config(args):
+    """The ModelConfig the flags ask for, by the reference CLIs' rules:
+    ``--depth`` (26, 50 or 101), ``--num_classes``, ``--confidence`` and,
+    where the CLI has them, ``--bf16`` and ``--no_mask``."""
+    from apse_uav_torch.dcnn.config import mask_rcnn_r50_fpn, mask_rcnn_r101_fpn
+
+    cfg = (mask_rcnn_r101_fpn if args.depth == 101 else mask_rcnn_r50_fpn)(num_classes=args.num_classes)
+    if args.depth == 26:
+        cfg = dataclasses.replace(cfg, depth=26)
+    cfg = dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, score_thresh_test=args.confidence))
+    if getattr(args, "bf16", False):
+        cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    if getattr(args, "no_mask", False):
+        cfg = dataclasses.replace(cfg, mask_on=False)
+    return cfg
+
+
+def cli_device(args):
+    """The device ``--device`` names (``cuda`` raises when no card is
+    visible), with TF32 off so that the float32 model runs in float32."""
     import torch
 
-    from apse_uav_torch.dcnn import weights as W
-    from apse_uav_torch.dcnn.config import TrackerConfig, mask_rcnn_r50_fpn, mask_rcnn_r101_fpn
-    from apse_uav_torch.dcnn.engines import RcnnTracker
-    from apse_uav_torch.dcnn.models.association import init_weights
     from apse_uav_torch.device import resolve_device
-    from apse_uav_torch.utils.mask_geometry import dcnn_log_line, write_dcnn_log
 
-    if args.bf16:
-        raise NotImplementedError("--bf16: the bf16 compute path is not ported yet (ROADMAP.md, item 12)")
-    if args.assoc_weights:
-        raise NotImplementedError("--assoc_weights: loading the association head's training checkpoint needs "
-                                  "train/checkpoint.py, not ported yet (ROADMAP.md, item 12)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = resolve_device(args.device)
-    make = mask_rcnn_r50_fpn if args.depth == 50 else mask_rcnn_r101_fpn
-    cfg = make(num_classes=args.num_classes)
-    cfg = dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, score_thresh_test=args.confidence))
+    return resolve_device(args.device)
 
-    frames = iter(frames)
-    try:
-        first_idx, first = next(frames)
-    except StopIteration:
-        raise ValueError("no frames to track") from None
-    orig_hw = first.shape[:2]
+
+def build_tracker(args, orig_hw: tuple[int, int], cfg=None):
+    """The RcnnTracker the flags ask for, for frames of ``orig_hw``, and the
+    ``Preprocessor`` (or None) that goes before it.  The detector's weights
+    are ``--checkpoint``'s ``params`` (the port's checkpoint format) where
+    the CLI has that flag and it is given, else ``--weights``' detectron2
+    file; ``--association`` picks the metric where the CLI has it.  ``cfg``
+    overrides :func:`model_config`."""
+    from apse_uav_torch.dcnn import weights as W
+    from apse_uav_torch.dcnn.config import TrackerConfig
+    from apse_uav_torch.dcnn.engines import RcnnTracker
+    from apse_uav_torch.dcnn.models.association import head_weights
+
+    device = cli_device(args)
+    cfg = model_config(args) if cfg is None else cfg
+    checkpoint = getattr(args, "checkpoint", None)
+    if checkpoint:
+        from apse_uav_torch.train.checkpoint import load_state
+
+        state = load_state(os.path.dirname(checkpoint) or ".", os.path.basename(checkpoint))
+        if state is None:
+            raise SystemExit(f"checkpoint not found: {checkpoint}")
+        weights = state["params"] if "params" in state else state
+    elif args.weights:
+        weights = W.load_torch_file(args.weights)
+    else:
+        raise SystemExit("one of --weights / --checkpoint is required")
+    tcfg = TrackerConfig()
+    if getattr(args, "association", None):
+        tcfg = dataclasses.replace(tcfg, association_metric=args.association)
+    assoc = head_weights(args.assoc_weights, cfg.fpn_channels * tcfg.roi_size**2, tcfg.embedding_dim)
+    tracker = RcnnTracker(cfg, tcfg, weights, assoc, orig_hw, device=device)
+    if tracker.predictor.missing:
+        print(f"warning: {len(tracker.predictor.missing)} params not found in checkpoint (left at init)")
     pre = None
     if args.preprocess:
         from apse_uav_torch.preproc.remap import Preprocessor
 
         pre = Preprocessor.from_json(args.preprocess, (orig_hw[1], orig_hw[0]), device=device)
+    return tracker, pre
 
-    tcfg = TrackerConfig()
-    assoc = init_weights(cfg.fpn_channels * tcfg.roi_size**2, tcfg.embedding_dim)
-    tracker = RcnnTracker(cfg, tcfg, W.load_torch_file(args.weights), assoc, orig_hw, device=device)
-    if tracker.predictor.missing:
-        print(f"warning: {len(tracker.predictor.missing)} params not found in checkpoint (left at init)")
+
+def track_frames(tracker, pre, frames, batch: int):
+    """Track ``frames``, an iterable of (idx, (H, W, 3) u8 BGR numpy frame),
+    in batches of ``batch`` frames through ``pre`` (or none) and
+    ``tracker``.  One batch deep: batch N+1 is dispatched before the host
+    takes batch N's snapshots.  Yields (idx, frame, snapshot as numpy) for
+    every frame, in order."""
+    import torch
+
+    def dispatch(chunk):
+        """Enqueue preprocess + detect + associate for a batch."""
+        x = torch.from_numpy(np.stack([f for _, f in chunk])).to(tracker.device)
+        if pre is not None:
+            # Stays on the device: the predictor reads it there.
+            x, _ = pre(x, with_gray=False)
+        return tracker.process_frames_async(x), chunk
+
+    def consume(pending):
+        handle, chunk = pending
+        recents = tracker.materialize(handle)
+        for b, (idx, frame) in enumerate(chunk):
+            yield idx, frame, {k: v[b] for k, v in recents.items()}
+
+    pending, chunk = None, []
+    for item in frames:
+        chunk.append(item)
+        if len(chunk) == batch:
+            nxt = dispatch(chunk)
+            if pending is not None:
+                yield from consume(pending)
+            pending, chunk = nxt, []
+    if chunk:
+        nxt = dispatch(chunk)
+        if pending is not None:
+            yield from consume(pending)
+        pending = nxt
+    if pending is not None:
+        yield from consume(pending)
+
+
+def track(args, frames, on_frame=None) -> dict:
+    """The CLI's loop over ``frames``, an iterable of (idx, (H, W, 3) u8 BGR
+    numpy frame), through :func:`track_frames`, the host writing CSV rows
+    and images.  ``on_frame(idx, recent)``, if given, receives each frame's
+    snapshot (numpy).  Writes ``args.log_file``; returns {"frames", "rows",
+    "max_obj_id", "seconds"}."""
+    from apse_uav_torch.utils.mask_geometry import dcnn_log_line, write_dcnn_log
+
+    frames = iter(frames)
+    try:
+        first = next(frames)
+    except StopIteration:
+        raise ValueError("no frames to track") from None
+    orig_hw = first[1].shape[:2]
+    tracker, pre = build_tracker(args, orig_hw)
     vis = None
     if args.write_images:
         from apse_uav_torch.utils.visualizer import TrackVisualizer
@@ -136,53 +223,20 @@ def track(args, frames, on_frame=None) -> dict:
     max_obj_id = 0
     n_done = 0
     t_start = time.perf_counter()
+    for idx, frame, recent in track_frames(tracker, pre, itertools.chain([first], frames), args.batch):
+        if args.log_file:
+            line, highest = dcnn_log_line(recent, args.host_id, idx, orig_hw)
+            log_lines.append(line)
+            max_obj_id = max(max_obj_id, highest)
+        if on_frame is not None:
+            on_frame(idx, recent)
+        if vis is not None:
+            import cv2
 
-    def dispatch(batch_frames, batch_idxs):
-        """Enqueue preprocess + detect + associate for a batch."""
-        x = torch.from_numpy(np.stack(batch_frames)).to(device)
-        if pre is not None:
-            # Stays on the device: the predictor reads it there.
-            x, _ = pre(x, with_gray=False)
-        return tracker.process_frames_async(x), batch_frames, batch_idxs
-
-    def consume(pending):
-        nonlocal max_obj_id, n_done
-        handle, batch_frames, batch_idxs = pending
-        recents = tracker.materialize(handle)
-        for b, idx in enumerate(batch_idxs):
-            recent = {k: v[b] for k, v in recents.items()}
-            if args.log_file:
-                line, highest = dcnn_log_line(recent, args.host_id, idx, orig_hw)
-                log_lines.append(line)
-                max_obj_id = max(max_obj_id, highest)
-            if on_frame is not None:
-                on_frame(idx, recent)
-            if vis is not None:
-                import cv2
-
-                cv2.imwrite(os.path.join(args.write_images, f"image_{idx:04d}.png"), vis.draw(batch_frames[b], recent))
-        n_done += len(batch_idxs)
-        print(f"frame {batch_idxs[-1]}: {n_done / (time.perf_counter() - t_start):.2f} fps", end="\r")
-
-    # One batch deep: batch N+1 is dispatched before the host consumes batch N.
-    pending = None
-    batch_frames, batch_idxs = [first], [first_idx]
-    for idx, frame in frames:
-        batch_frames.append(frame)
-        batch_idxs.append(idx)
-        if len(batch_frames) == args.batch:
-            nxt = dispatch(batch_frames, batch_idxs)
-            if pending is not None:
-                consume(pending)
-            pending = nxt
-            batch_frames, batch_idxs = [], []
-    if batch_frames:
-        nxt = dispatch(batch_frames, batch_idxs)
-        if pending is not None:
-            consume(pending)
-        pending = nxt
-    if pending is not None:
-        consume(pending)
+            cv2.imwrite(os.path.join(args.write_images, f"image_{idx:04d}.png"), vis.draw(frame, recent))
+        n_done += 1
+        if n_done % args.batch == 0:
+            print(f"frame {idx}: {n_done / (time.perf_counter() - t_start):.2f} fps", end="\r")
     print()
     if args.log_file:
         write_dcnn_log(args.log_file, log_lines, args.host_id, max_obj_id)

@@ -155,3 +155,36 @@ def association_state_dict(flat: dict) -> dict[str, np.ndarray]:
         raise ValueError(f"no port parameter for JAX AssociationHead parameter(s) {sorted(unknown)}")
     return {"fc.weight": np.array(_flax_dense(flat["fc/kernel"]), np.float32),
             "fc.bias": np.array(flat["fc/bias"], np.float32)}
+
+
+def _flatten_tree(tree, prefix: str = "") -> dict:
+    """A nested dict of arrays -> {'/'-joined path: array}."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten_tree(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def checkpoint_state(state: dict) -> dict:
+    """A training state the JAX package saved (``train.checkpoint.save_state``;
+    orbax restores it as nested numpy) -> the port's checkpoint state
+    (``apse_uav_torch.train.checkpoint``): ``params`` of a MaskRCNN through
+    :func:`mask_rcnn_state_dict`, of an AssociationHead through
+    :func:`association_state_dict`; numbers as Python numbers; the optimizer
+    state (``opt_state``) dropped, as the port has no optimizer yet."""
+    out = {}
+    for key, value in state.items():
+        if key == "opt_state":
+            continue
+        if key == "params":
+            flat = _flatten_tree(value)
+            is_head = set(flat) <= {"fc/kernel", "fc/bias"}
+            value = association_state_dict(flat) if is_head else mask_rcnn_state_dict(flat)
+        elif isinstance(value, (np.ndarray, np.generic)) and np.ndim(value) == 0:
+            value = np.asarray(value).item()
+        out[key] = value
+    return out

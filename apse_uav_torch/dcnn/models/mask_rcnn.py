@@ -8,8 +8,14 @@ are a GeneralizedRCNN checkpoint's (see :mod:`apse_uav_torch.dcnn.weights`).
 
 The stages are methods of their own (``features``, ``proposals``,
 ``detect``) so a caller can time them apart; ``inference`` runs them in
-order.  Only float32 compute is ported: ``compute_dtype="bfloat16"`` (the
-CLI's ``--bf16``) and the C4 architecture raise, naming ``ROADMAP.md``.
+order.  ``compute_dtype`` and ``head_compute_dtype`` work as in the
+reference: parameters stay float32 and are cast at use, the backbone runs in
+the compute dtype, the RPN head and mask head in the head dtype, ROIAlign
+returns float32, and the box head computes in float32 on inputs rounded to
+the head dtype.  Nothing is cast at the end: bf16 outputs meet float32
+anchors and boxes under the reference's promotion rules, so in bfloat16 the
+proposal scores and the masks come out bfloat16, the boxes float32.  The C4
+architecture raises, naming ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -30,11 +36,15 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise on the parts of a ModelConfig the port does not run yet."""
     if cfg.architecture != "fpn":
         raise NotImplementedError(f"architecture={cfg.architecture!r}: the C4 model (Res5Stage) is not ported "
-                                  "yet (ROADMAP.md, item 12)")
+                                  "yet (ROADMAP.md, item 9)")
     for field in ("compute_dtype", "head_compute_dtype"):
-        if getattr(cfg, field) not in ("float32", ""):
-            raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: only float32 compute is ported; the "
-                                      "bf16 compute path waits (ROADMAP.md, item 12)")
+        if getattr(cfg, field) not in ("float32", "bfloat16", ""):
+            raise ValueError(f"{field}={getattr(cfg, field)!r}: use 'float32' or 'bfloat16'")
+
+
+def compute_dtypes(cfg: ModelConfig) -> tuple[torch.dtype, torch.dtype]:
+    """(backbone, head) compute dtypes of a config; an empty head dtype follows the backbone's."""
+    return getattr(torch, cfg.compute_dtype), getattr(torch, cfg.head_compute_dtype or cfg.compute_dtype)
 
 
 class ROIHeads(nn.Module):
@@ -43,10 +53,13 @@ class ROIHeads(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         roi = cfg.roi
-        self.box_head = BoxHead(cfg.fpn_channels * roi.box_pooler_resolution**2, roi.box_fc_dim, roi.num_box_fc)
+        head_dtype = compute_dtypes(cfg)[1]
+        self.box_head = BoxHead(cfg.fpn_channels * roi.box_pooler_resolution**2, roi.box_fc_dim, roi.num_box_fc,
+                                head_dtype)
         self.box_predictor = BoxPredictor(roi.box_fc_dim, roi.num_classes)
         if cfg.mask_on:
-            self.mask_head = MaskHead(roi.num_classes, cfg.fpn_channels, roi.mask_conv_dim, roi.num_mask_conv)
+            self.mask_head = MaskHead(roi.num_classes, cfg.fpn_channels, roi.mask_conv_dim, roi.num_mask_conv,
+                                      head_dtype)
 
 
 class MaskRCNN(nn.Module):
@@ -62,9 +75,10 @@ class MaskRCNN(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.backbone = ResNetFPN(cfg.depth, cfg.fpn_channels, cfg.stride_in_1x1)
+        dtype, head_dtype = compute_dtypes(cfg)
+        self.backbone = ResNetFPN(cfg.depth, cfg.fpn_channels, cfg.stride_in_1x1, dtype)
         self.proposal_generator = nn.ModuleDict(
-            {"rpn_head": RPNHead(len(cfg.anchors.aspect_ratios), cfg.fpn_channels)})
+            {"rpn_head": RPNHead(len(cfg.anchors.aspect_ratios), cfg.fpn_channels, head_dtype)})
         self.roi_heads = ROIHeads(cfg)
         self.register_buffer("pixel_mean", torch.tensor(cfg.input.pixel_mean, dtype=torch.float32), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.input.pixel_std, dtype=torch.float32), persistent=False)

@@ -11,6 +11,11 @@ the NCHW tensors the convolutions run on (cuDNN's float32 kernels take
 NCHW; ``channels_last`` input made it transpose around every convolution).
 The convolutions are library calls (cuDNN on the card); frozen batch norm is
 an explicit per-channel affine, computed as the reference does.
+
+``dtype`` is the compute dtype (the config's ``compute_dtype``): the input is
+cast to it, parameters stay float32 and are cast at use (:func:`conv`), and
+every map comes out in it.  In bfloat16 the convolutions run on
+``channels_last`` tensors, the layout of the card's bf16 tensor-core kernels.
 """
 
 from __future__ import annotations
@@ -26,6 +31,20 @@ STAGE_BLOCKS = {
     101: (3, 4, 23, 3),
     152: (3, 8, 36, 3),
 }
+
+
+def conv(m: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+    """The convolution ``m`` computed in x's dtype, as a flax layer with
+    ``dtype=`` computes it: the float32 parameters cast at use and, in a
+    reduced dtype, the bias added after the product is rounded."""
+    same = x.dtype == m.weight.dtype
+    w = m.weight if same else m.weight.to(x.dtype)
+    b = m.bias if same else None
+    if isinstance(m, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(x, w, b, m.stride, m.padding, m.output_padding, m.groups, m.dilation)
+    else:
+        y = F.conv2d(x, w, b, m.stride, m.padding, m.dilation, m.groups)
+    return y if same or m.bias is None else y + m.bias.to(x.dtype)[:, None, None]
 
 
 class FrozenBN(nn.Module):
@@ -57,7 +76,7 @@ class ConvNorm(nn.Conv2d):
         self.norm = FrozenBN(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(super().forward(x))
+        return self.norm(conv(self, x))
 
 
 class Bottleneck(nn.Module):
@@ -127,13 +146,13 @@ class FPN(nn.Module):
 
     def pyramid(self, feats: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """NCHW res2..res5 -> NCHW p2..p6."""
-        laterals = [getattr(self, f"fpn_lateral{i + 2}")(feats[f"res{i + 2}"]) for i in range(4)]
+        laterals = [conv(getattr(self, f"fpn_lateral{i + 2}"), feats[f"res{i + 2}"]) for i in range(4)]
         td = [None, None, None, laterals[3]]
         for i in (2, 1, 0):
             up = F.interpolate(td[i + 1], scale_factor=2.0, mode="nearest")
             lh, lw = laterals[i].shape[2:]
             td[i] = laterals[i] + up[:, :, :lh, :lw]
-        outs = {f"p{i + 2}": getattr(self, f"fpn_output{i + 2}")(td[i]) for i in range(4)}
+        outs = {f"p{i + 2}": conv(getattr(self, f"fpn_output{i + 2}"), td[i]) for i in range(4)}
         outs["p6"] = outs["p5"][:, :, ::2, ::2]
         return outs
 
@@ -142,12 +161,15 @@ class ResNetFPN(FPN):
     """The backbone: NHWC normalised images -> NHWC res2..res5 and p2..p6
     maps (the tracker reads p2 for its re-ID embeddings)."""
 
-    def __init__(self, depth: int = 50, channels: int = 256, stride_in_1x1: bool = True):
+    def __init__(self, depth: int = 50, channels: int = 256, stride_in_1x1: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(channels)
         self.bottom_up = ResNet(depth, stride_in_1x1)
+        self.dtype = dtype
 
     def forward(self, x_nhwc: torch.Tensor) -> dict[str, torch.Tensor]:
-        x = x_nhwc.permute(0, 3, 1, 2).contiguous()
+        x = x_nhwc.permute(0, 3, 1, 2).to(self.dtype)
+        x = x.contiguous(memory_format=torch.channels_last if self.dtype == torch.bfloat16 else torch.contiguous_format)
         res = self.bottom_up(x)
         maps = {**res, **self.pyramid(res)}
         return {k: v.permute(0, 2, 3, 1) for k, v in maps.items()}

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apse_uav_torch.dcnn.config import ROIConfig
+from apse_uav_torch.dcnn.models.resnet import conv
 from apse_uav_torch.dcnn.ops import apply_deltas, clip_boxes
 from apse_uav_torch.dcnn.ops.nms import batched_nms, descending_order
 from apse_uav_torch.dcnn.ops.roi_align import sample_grid
@@ -103,16 +104,20 @@ def fpn_roi_align(feats: dict[str, torch.Tensor], boxes: torch.Tensor, resolutio
 
 class BoxHead(nn.Module):
     """FastRCNNConvFCHead: flatten (C, R, R) in channel-major order, then
-    ``num_fc`` ReLU FC layers -> (N, fc_dim) features."""
+    ``num_fc`` ReLU FC layers -> (N, fc_dim) float32 features.  The input is
+    rounded to ``dtype`` (the head compute dtype), as the reference casts it;
+    the reference's FC layers take no dtype, so they compute in float32, the
+    promotion of that input with their float32 parameters."""
 
-    def __init__(self, in_dim: int, fc_dim: int = 1024, num_fc: int = 2):
+    def __init__(self, in_dim: int, fc_dim: int = 1024, num_fc: int = 2, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_fc = num_fc
+        self.dtype = dtype
         for i in range(num_fc):
             self.add_module(f"fc{i + 1}", nn.Linear(in_dim if i == 0 else fc_dim, fc_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.reshape(x.shape[0], -1)
+        x = x.reshape(x.shape[0], -1).to(self.dtype).to(torch.float32)
         for i in range(self.num_fc):
             x = F.relu(getattr(self, f"fc{i + 1}")(x))
         return x
@@ -135,20 +140,24 @@ class BoxPredictor(nn.Module):
 class MaskHead(nn.Module):
     """MaskRCNNConvUpsampleHead: ``num_conv`` 3x3 ReLU convolutions, a 2x2/2
     transposed convolution + ReLU, a 1x1 predictor.  (N, C, R, R) -> mask
-    logits (N, K, 2R, 2R)."""
+    logits (N, K, 2R, 2R), computed and returned in ``dtype`` (the head
+    compute dtype)."""
 
-    def __init__(self, num_classes: int, in_ch: int = 256, conv_dim: int = 256, num_conv: int = 4):
+    def __init__(self, num_classes: int, in_ch: int = 256, conv_dim: int = 256, num_conv: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_conv = num_conv
+        self.dtype = dtype
         for i in range(num_conv):
             self.add_module(f"mask_fcn{i + 1}", nn.Conv2d(in_ch if i == 0 else conv_dim, conv_dim, 3, padding=1))
         self.deconv = nn.ConvTranspose2d(conv_dim, conv_dim, 2, stride=2)
         self.predictor = nn.Conv2d(conv_dim, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         for i in range(self.num_conv):
-            x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
-        return self.predictor(F.relu(self.deconv(x)))
+            x = F.relu(conv(getattr(self, f"mask_fcn{i + 1}"), x))
+        return conv(self.predictor, F.relu(conv(self.deconv, x)))
 
 
 def box_inference(scores_logits: torch.Tensor, deltas: torch.Tensor, proposals: torch.Tensor,

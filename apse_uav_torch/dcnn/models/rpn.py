@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from apse_uav_torch.dcnn.config import AnchorConfig, RPNConfig
+from apse_uav_torch.dcnn.models.resnet import conv
 from apse_uav_torch.dcnn.ops import apply_deltas, clip_boxes, nonempty
 from apse_uav_torch.dcnn.ops.nms import descending_order, nms_mask
 
@@ -61,24 +62,26 @@ def grid_anchors(hw: tuple[int, int], stride: int, size: float, aspect_ratios: t
 
 class RPNHead(nn.Module):
     """Shared 3x3 convolution + objectness / delta 1x1 convolutions, the same
-    weights on every level (detectron2 StandardRPNHead names)."""
+    weights on every level (detectron2 StandardRPNHead names), computed in
+    ``dtype`` (the head compute dtype)."""
 
-    def __init__(self, num_anchors: int, channels: int = 256):
+    def __init__(self, num_anchors: int, channels: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_anchors = num_anchors
+        self.dtype = dtype
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
         self.objectness_logits = nn.Conv2d(channels, num_anchors, 1)
         self.anchor_deltas = nn.Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feats: dict[str, torch.Tensor]):
         """feats[level] NHWC (B, H, W, C) -> (logits[level] (B, H*W*A),
-        deltas[level] (B, H*W*A, 4)), anchor-minor as the grid anchors."""
+        deltas[level] (B, H*W*A, 4)), anchor-minor as the grid anchors, in ``dtype``."""
         logits, deltas = {}, {}
         for name, x in feats.items():
-            t = F.relu(self.conv(x.permute(0, 3, 1, 2)))
+            t = F.relu(conv(self.conv, x.permute(0, 3, 1, 2).to(self.dtype)))
             b, _, h, w = t.shape
-            logits[name] = self.objectness_logits(t).permute(0, 2, 3, 1).reshape(b, h * w * self.num_anchors)
-            deltas[name] = self.anchor_deltas(t).permute(0, 2, 3, 1).reshape(b, h * w * self.num_anchors, 4)
+            logits[name] = conv(self.objectness_logits, t).permute(0, 2, 3, 1).reshape(b, h * w * self.num_anchors)
+            deltas[name] = conv(self.anchor_deltas, t).permute(0, 2, 3, 1).reshape(b, h * w * self.num_anchors, 4)
         return logits, deltas
 
 
@@ -95,7 +98,8 @@ def select_proposals(logits: dict[str, torch.Tensor], deltas: dict[str, torch.Te
     logits[level] (B, N_l), deltas[level] (B, N_l, 4).  Returns (boxes (B, P, 4),
     scores (B, P), valid (B, P)) with P = min(post_nms_topk_test, all
     candidates), in descending score, ties by lower index (``lax.top_k``'s
-    order).  Levels run together: each level's candidates are padded to the
+    order).  bfloat16 logits stay bfloat16 (so do the scores, ranked as they
+    are); the boxes come out float32, bf16 deltas meeting float32 anchors.  Levels run together: each level's candidates are padded to the
     largest budget with invalid entries, which neither suppress nor survive.
     """
     pre_k, post_k = rpn_cfg.pre_nms_topk_test, rpn_cfg.post_nms_topk_test

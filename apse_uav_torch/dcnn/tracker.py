@@ -1,11 +1,20 @@
-"""Tracker step: re-ID embeddings, gated-auction association, track update.
+"""Tracker step: re-ID embeddings, association, track update.
 
-Counterpart of the JAX reference's ``dcnn/tracker.py`` for its default
-``embeddings`` metric: mask-cropped p2 features -> ROIAlign (10x10,
-sampling ratio 4, aligned=False) -> AssociationHead -> squared-L2 distance
-matrix -> gated auction (threshold 0.6); unmatched detections become new
-tracks.  The ``bbox_center_dist`` and ``mask_iou`` metrics are not ported yet
-and raise (``ROADMAP.md``).
+Counterpart of the JAX reference's ``dcnn/tracker.py``.  Its association
+metrics (``TrackerConfig.association_metric``):
+
+* ``embeddings`` (default): mask-cropped p2 features -> ROIAlign (10x10,
+  sampling ratio 4, aligned=False) -> AssociationHead -> squared-L2 distance
+  matrix -> gated auction (threshold 0.6), or with ``exact=True`` the
+  Jonker-Volgenant solve of the padded square problem, then the gate;
+* ``bbox_center_dist``: the nearest active track by squared box-centre
+  distance, below the threshold;
+* ``mask_iou``: the active track of highest centroid-aligned mask IoU on a
+  64x64 pasted grid, at least the threshold.
+
+Unmatched detections become new tracks.  Where two detections match one
+track, the later detection's fields land (the reference's scatter, where the
+last write wins).
 
 The stateless half (:func:`prepare_frame`: top-k cap + embeddings) takes a
 batch of frames at once; only :func:`tracker_step_assoc` carries state from
@@ -19,10 +28,36 @@ import torch
 
 from apse_uav_torch.dcnn import structures
 from apse_uav_torch.dcnn.config import TrackerConfig
-from apse_uav_torch.dcnn.hungarian import set_at, gated_auction_match
+from apse_uav_torch.dcnn.hungarian import _BIG, gated_auction_match, linear_sum_assignment, pad_cost, set_at
 from apse_uav_torch.dcnn.models.association import AssociationHead
 from apse_uav_torch.dcnn.ops.nms import descending_order
 from apse_uav_torch.dcnn.ops.roi_align import sample_grid
+
+
+# Gating pad of the argmin metrics: "farther than anything real" (the
+# reference's _FAR_SQ; the exact solver pads with hungarian._BIG instead).
+_FAR_SQ = 1e7
+
+
+def paste_mask_lowres(mask_rr: torch.Tensor, boxes: torch.Tensor, grid_hw: tuple[int, int],
+                      image_hw: tuple[int, int]) -> torch.Tensor:
+    """Paste (..., R, R) box-space masks onto a (gh, gw) grid over the whole
+    image: (..., gh, gw), the nearest mask cell of each grid cell's centre, 0
+    outside the box band.  boxes (..., 4) in ``image_hw`` coordinates."""
+    gh, gw = grid_hw
+    r = mask_rr.shape[-1]
+    dev = mask_rr.device
+    lead = mask_rr.shape[:-2]
+    m = mask_rr.reshape(-1, r, r)
+    b = boxes.reshape(-1, 4)
+    x1, y1, x2, y2 = (b[:, i : i + 1] for i in range(4))
+    xs = ((torch.arange(gw, device=dev) + 0.5) * (image_hw[1] / gw) - x1) / torch.clamp(x2 - x1, min=1e-4) * r - 0.5
+    ys = ((torch.arange(gh, device=dev) + 0.5) * (image_hw[0] / gh) - y1) / torch.clamp(y2 - y1, min=1e-4) * r - 0.5
+    xi = torch.round(xs).to(torch.int64).clamp(0, r - 1)
+    yi = torch.round(ys).to(torch.int64).clamp(0, r - 1)
+    inside = ((xs > -1) & (xs < r))[:, None, :] & ((ys > -1) & (ys < r))[:, :, None]
+    vals = m[torch.arange(m.shape[0], device=dev)[:, None, None], yi[:, :, None], xi[:, None, :]]
+    return torch.where(inside, vals, torch.zeros((), device=dev)).reshape(*lead, gh, gw)
 
 
 def _mask_plane_patch(mask_rr: torch.Tensor, boxes: torch.Tensor, anchor_yx, patch_hw: tuple[int, int],
@@ -98,6 +133,7 @@ def detection_embeddings(head: AssociationHead, feats_p2: torch.Tensor, det: dic
         masks = det["masks"].reshape(nb * d, *det["masks"].shape[2:])
         plane = _mask_plane_patch(masks, boxes, (ay, ax), (py, px), image_hw, (h4, w4))
         pt = pt * plane[..., None]
+    pt = pt.to(torch.float32)  # bf16 maps and masks meet the float32 weights: float32 products
     sampled = torch.matmul(wy, pt.reshape(nb * d, py, px * c)).reshape(nb * d, n, px, c)  # (N, s, q, C)
     sampled = torch.matmul(sampled.permute(0, 1, 3, 2), wx.transpose(1, 2)[:, None])  # (N, s, C, t)
     vals = sampled.reshape(nb * d, roi_size, s, c, roi_size, s).mean(dim=(2, 5))  # (N, R, C, R)
@@ -135,9 +171,13 @@ def _allocate_new_tracks(state: dict, det: dict, embeddings: torch.Tensor, is_ne
 
 def _apply_matches(state: dict, det: dict, embeddings: torch.Tensor, track_for_det: torch.Tensor,
                    is_matched: torch.Tensor) -> dict:
-    """Overwrite matched tracks with their detections."""
+    """Overwrite matched tracks with their detections; of two detections
+    matched to one track, the later one's fields land."""
     cap = state["active"].shape[0]
     idx = torch.where(is_matched, track_for_det, cap)
+    order = torch.arange(idx.shape[0], device=idx.device)
+    overwritten = ((idx[:, None] == idx[None, :]) & (order[None, :] > order[:, None])).any(dim=1)
+    idx = torch.where(overwritten, cap, idx)
     return {
         **state,
         "detected_this_frame": set_at(state["detected_this_frame"], idx, torch.ones_like(is_matched)),
@@ -151,22 +191,83 @@ def _apply_matches(state: dict, det: dict, embeddings: torch.Tensor, track_for_d
     }
 
 
-def associate_embeddings(state: dict, det: dict, embeddings: torch.Tensor, threshold: float) -> dict:
-    """Gated-auction association on squared-L2 embedding distances, then new
-    tracks for the unmatched detections (one frame: det fields (D, ...))."""
+def associate_embeddings(state: dict, det: dict, embeddings: torch.Tensor, threshold: float,
+                         exact: bool = False) -> dict:
+    """Association on squared-L2 embedding distances, then new tracks for the
+    unmatched detections (one frame: det fields (D, ...)).  The default
+    solver is the gated auction; ``exact=True`` pads the problem to square
+    with the solver's pad (``_BIG``, not ``_FAR_SQ``: float32 keeps sub-unit
+    resolution there), solves it with Jonker-Volgenant and gates the pairs."""
     cap = state["active"].shape[0]
     d_cap = embeddings.shape[0]
     dev = embeddings.device
     diffs = state["embeddings"][:, None, :] - embeddings[None, :, :]
     dist = torch.sum(diffs * diffs, dim=-1)  # (T, D)
-    det_for_track = gated_auction_match(dist, state["active"], det["valid"], threshold)
-    det_for_track = torch.where(det_for_track < 0, d_cap, det_for_track)
+    if exact:
+        n = max(cap, d_cap)
+        cost = torch.full((n, n), _BIG, device=dev)
+        cost[:cap, :d_cap] = pad_cost(dist, state["active"], det["valid"])
+        det_for_track = linear_sum_assignment(cost)[1][:cap]
+    else:
+        det_for_track = gated_auction_match(dist, state["active"], det["valid"], threshold)
+        det_for_track = torch.where(det_for_track < 0, d_cap, det_for_track)
     clipped = det_for_track.clamp(0, d_cap - 1)
     ok = state["active"] & (det_for_track < d_cap) & det["valid"][clipped]
     ok &= dist[torch.arange(cap, device=dev), clipped] < threshold
     track_for_det = set_at(torch.full((d_cap,), cap, dtype=torch.int64, device=dev),
                             torch.where(ok, clipped, d_cap), torch.arange(cap, device=dev))
     is_matched = det["valid"] & (track_for_det < cap)
+    state = _apply_matches(state, det, embeddings, track_for_det, is_matched)
+    return _allocate_new_tracks(state, det, embeddings, det["valid"] & ~is_matched)
+
+
+def associate_center_dist(state: dict, det: dict, embeddings: torch.Tensor, threshold_sq: float) -> dict:
+    """Each detection to the nearest active track by squared box-centre
+    distance (lower track index on ties) if below ``threshold_sq``."""
+    cap = state["active"].shape[0]
+    det_c = (det["boxes"][:, :2] + det["boxes"][:, 2:]) / 2.0
+    trk_c = (state["boxes"][:, :2] + state["boxes"][:, 2:]) / 2.0
+    d2 = torch.sum((trk_c[:, None] - det_c[None]) ** 2, dim=-1)  # (T, D)
+    d2 = torch.where(state["active"][:, None], d2, torch.full((), _FAR_SQ, device=d2.device))
+    nearest = torch.argmin(d2, dim=0)
+    is_matched = det["valid"] & (d2.gather(0, nearest[None])[0] < threshold_sq)
+    track_for_det = torch.where(is_matched, nearest, cap)
+    state = _apply_matches(state, det, embeddings, track_for_det, is_matched)
+    return _allocate_new_tracks(state, det, embeddings, det["valid"] & ~is_matched)
+
+
+def _centroids(m: torch.Tensor) -> torch.Tensor:
+    """(N, g, g) bool -> (N, 2) float32 (y, x) mean cell, (0, 0) for an empty mask."""
+    g = m.shape[-1]
+    ar = torch.arange(g, device=m.device)
+    tot = m.sum(dim=(1, 2)).clamp(min=1)
+    ys = (m.sum(dim=2) * ar).sum(dim=1) / tot
+    xs = (m.sum(dim=1) * ar).sum(dim=1) / tot
+    return torch.stack([ys, xs], dim=-1).to(torch.float32)
+
+
+def associate_mask_iou(state: dict, det: dict, embeddings: torch.Tensor, threshold: float,
+                       image_hw: tuple[int, int], grid: int = 64) -> dict:
+    """Each detection to the active track of highest centroid-aligned mask
+    IoU (lower track index on ties) if at least ``threshold``: both masks
+    pasted on a (grid, grid) image grid at 0.5, the detection's rolled
+    (cyclically, ``jnp.roll``) by the rounded centroid offset."""
+    cap = state["active"].shape[0]
+    dev = embeddings.device
+    det_m = paste_mask_lowres(det["masks"], det["boxes"], (grid, grid), image_hw) > 0.5  # (D, g, g)
+    trk_m = paste_mask_lowres(state["masks"], state["boxes"], (grid, grid), image_hw) > 0.5  # (T, g, g)
+    shift = torch.round(_centroids(trk_m)[:, None] - _centroids(det_m)[None]).to(torch.int64)  # (T, D, 2)
+    ar = torch.arange(grid, device=dev)
+    ry = (ar - shift[..., 0:1]) % grid  # (T, D, g): the source row of each rolled row
+    rx = (ar - shift[..., 1:2]) % grid
+    d_idx = torch.arange(det_m.shape[0], device=dev)[None, :, None, None]
+    rolled = det_m[d_idx, ry[..., :, None], rx[..., None, :]]  # (T, D, g, g)
+    inter = (rolled & trk_m[:, None]).sum(dim=(2, 3))
+    union = (rolled | trk_m[:, None]).sum(dim=(2, 3)).clamp(min=1)
+    iou = torch.where(state["active"][:, None], inter / union, torch.full((), -1.0, device=dev))
+    best = torch.argmax(iou, dim=0)
+    is_matched = det["valid"] & (iou.gather(0, best[None])[0] >= threshold)
+    track_for_det = torch.where(is_matched, best, cap)
     state = _apply_matches(state, det, embeddings, track_for_det, is_matched)
     return _allocate_new_tracks(state, det, embeddings, det["valid"] & ~is_matched)
 
@@ -188,12 +289,17 @@ def prepare_frame(det: dict, feats_p2: torch.Tensor, head: AssociationHead, cfg:
 
 def tracker_step_assoc(state: dict, det: dict, emb: torch.Tensor, cfg: TrackerConfig,
                        image_hw: tuple[int, int]):
-    """The state-carrying half of a tracker step (one frame): associate,
-    prune, snapshot, age.  Returns (new_state, recent_objects)."""
-    if cfg.association_metric != "embeddings":
-        raise NotImplementedError(f"association_metric={cfg.association_metric!r} is not ported yet "
-                                  "(ROADMAP.md, item 12); use 'embeddings'")
-    state = associate_embeddings(state, det, emb, cfg.embedding_dist_threshold)
+    """The state-carrying half of a tracker step (one frame): associate by
+    ``cfg.association_metric``, prune, snapshot, age.  Returns (new_state,
+    recent_objects)."""
+    if cfg.association_metric == "embeddings":
+        state = associate_embeddings(state, det, emb, cfg.embedding_dist_threshold)
+    elif cfg.association_metric == "bbox_center_dist":
+        state = associate_center_dist(state, det, emb, cfg.center_dist_threshold)
+    elif cfg.association_metric == "mask_iou":
+        state = associate_mask_iou(state, det, emb, cfg.mask_iou_threshold, image_hw)
+    else:
+        raise ValueError(cfg.association_metric)
     state = structures.delete_undetected(state, cfg.delete_after_undetected)
     recent = structures.recent_objects(state)
     return structures.finish_association(state), recent

@@ -49,7 +49,9 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    4 with ``--preprocess data/cam_params.json`` (K3's RGB mode),
                    Mask R-CNN R101-FPN at full width (``uav_tracker_config()``) from
                    a seeded detectron2 checkpoint (its background bias set from
-                   the frames, ``calibrate_background``) saved as ``.pth`` under
+                   the frames, ``calibrate_background``, and its classes
+                   relabelled so that most detections are cars and pedestrians,
+                   ``favour_classes``) saved as ``.pth`` under
                    ``OUT_DIR`` and loaded through ``--weights`` (removed after),
                    the CSV written under ``OUT_DIR``; counts set to 0 just
                    before.  K3-RGB must launch, every frame must hold a
@@ -61,6 +63,35 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    versions) against the card: p2-p6 within 1e-4 of each map's
                    max-abs, the same valid ids and classes, boxes within 0.5 px,
                    the same CSV row.
+8. tracker_eval -- ``tracker_test``'s loop (``track_sequence``) over the same
+                   frames, ``--preprocess``, phase 7's calibrated weights saved
+                   as the port's checkpoint (``--checkpoint``) and its default
+                   re-ID head through ``--assoc_weights``, counts set to 0 before
+                   each of two runs: float32 and ``--bf16``; both write MOTS txt
+                   (RLE) under ``OUT_DIR``.  The float32 run must equal phase 7's
+                   snapshots bit for bit and score MOTSA = MOTSP = 1, IDS = 0
+                   against itself (objects with mask pixels); the bf16 run must
+                   hold a track in every frame with ids >= 1 never reused,
+                   p2-p6 within ``BF16_MAP_LIMIT`` of the float32 maps' max-abs
+                   and none equal to them; each run's p2-p6, RPN logits and mask
+                   probabilities in its compute dtype, and a bf16 convolution
+                   kernel in its profiled batch only in the bf16 run.
+                   Prints the bf16 run scored against the float32 run (with the
+                   number of objects scored) and both
+                   runs' stage ms, frames/s, device busy, idle share, launches
+                   and peak memory.
+9. association  -- phase 8's float32 detections and embeddings through
+                   ``bbox_center_dist``, ``mask_iou`` and ``embeddings(exact=True)``
+                   on the card and on the CPU: identical ids frame by frame;
+                   ms per batch.  ``linear_sum_assignment`` and
+                   ``auction_assignment`` on seeded 32x32 costs, both ways: JV
+                   at scipy's optimum, the auction within n x its last eps; ms
+                   per solve.
+10. detector    -- ``detector_test``'s ``detect`` at ``aerial_view_test``'s
+                   defaults (R50-FPN, 3 classes, no mask head; a seeded
+                   checkpoint, background bias calibrated) on 2 frames, card
+                   against CPU: the same valid detections and classes, boxes
+                   within 0.5 px.
 
 Prints the card's name and power limit and a ``kernels`` JSON line before
 the last line; the last line is the ``{"ok": true, "device": ...}`` object.
@@ -88,6 +119,10 @@ LEDS = 0b1010
 # confidence (its default and uav_tracker_config()'s score threshold).
 TRACK_BATCH = 4
 TRACK_CONFIDENCE = 0.5
+# bf16 against float32 maps (tracker_eval), relative to each map's max-abs:
+# the reference's own bf16-to-float32 gap is 1.2e-2 (R50) to 1.6e-2 (R101) on
+# the CPU (tests/test_torch_mask_rcnn.py), so 5e-2 leaves ~3x for 4K maps.
+BF16_MAP_LIMIT = 5e-2
 # What torch.cuda.set_sync_debug_mode("warn") says at each host sync.
 SYNC_WARNING = "called a synchronizing CUDA operation"
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and the non-tensor
@@ -195,11 +230,12 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def profile_call(fn, call_ms: float) -> dict:
+def profile_call(fn, call_ms: float, all_kernels: bool = False) -> dict:
     """Device time over one call of fn (torch.profiler, CUPTI): the sum of its
     kernels' times, their number, the device's idle share of the unprofiled
     call time ``call_ms``, and the largest entries by PyTorch op and by
-    kernel."""
+    kernel; with ``all_kernels``, also every kernel's full name under
+    "kernel_names"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -225,9 +261,12 @@ def profile_call(fn, call_ms: float) -> dict:
     def top(rows):
         return [[k[:60], round(ms, 3), n] for k, ms, n in sorted(rows, key=lambda r: -r[1])[:12]]
 
-    return {"call_ms": round(call_ms, 3), "device_busy_ms": round(busy_ms, 3),
-            "device_idle_share": round(1.0 - busy_ms / call_ms, 4), "kernel_launches": sum(r[2] for r in kernels),
-            "top_ops": top(ops), "top_kernels": top(kernels)}
+    out = {"call_ms": round(call_ms, 3), "device_busy_ms": round(busy_ms, 3),
+           "device_idle_share": round(1.0 - busy_ms / call_ms, 4), "kernel_launches": sum(r[2] for r in kernels),
+           "top_ops": top(ops), "top_kernels": top(kernels)}
+    if all_kernels:
+        out["kernel_names"] = [r[0] for r in kernels]
+    return out
 
 
 def run_path(make_pipe, frames, cfg, dev, names):
@@ -378,7 +417,7 @@ def calibrate_background(ckpt: dict, cfg, pre, frames_np, dev, per_frame: int = 
     h, w = frames_np.shape[1:3]
     pred = TrackPredictor(cfg, ckpt, (h, w), device=dev)
     model, heads, roi = pred.model, pred.model.roi_heads, cfg.roi
-    shifts = []
+    shifts, best_classes = [], []
     with torch.no_grad(), full_fp32():
         for b in range(0, frames_np.shape[0], TRACK_BATCH):
             x = pre(torch.from_numpy(frames_np[b:b + TRACK_BATCH]).to(dev), with_gray=False)[0]
@@ -394,6 +433,7 @@ def calibrate_background(ckpt: dict, cfg, pre, frames_np, dev, per_frame: int = 
             rest = torch.logsumexp(fg.scatter(-1, k, float("-inf")), -1)
             shift = torch.log(torch.clamp(torch.exp(best) - torch.exp(rest), min=1e-300)) - bg
             shifts += list(torch.where(valid & (best > rest), shift, torch.full_like(shift, float("-inf"))).cpu())
+            best_classes += list(k[..., 0].cpu())
     ranked = [torch.sort(s, descending=True).values for s in shifts]
     target = min(float(s[per_frame - 1]) for s in ranked)
     near = np.sort(np.concatenate([s[(s < target) & (s > target - 1.0)].numpy() for s in ranked] + [[target]]))
@@ -404,8 +444,34 @@ def calibrate_background(ckpt: dict, cfg, pre, frames_np, dev, per_frame: int = 
     bias = ckpt[key].copy()
     bias[-1] += delta
     ckpt[key] = bias
+    kept = torch.cat([c[s > delta] for s, c in zip(shifts, best_classes)])
     return {"background_bias": float(bias[-1]), "margin": float(gaps[i] / 2) if len(gaps) else 0.5,
-            "candidates_per_frame": [int((s > delta).sum()) for s in ranked]}
+            "candidates_per_frame": [int((s > delta).sum()) for s in ranked],
+            "class_counts": torch.bincount(kept, minlength=fg.shape[-1]).tolist()}
+
+
+def favour_classes(ckpt: dict, class_counts: list[int], favoured: list[int]) -> list[int]:
+    """Relabel the seeded checkpoint's foreground classes so that the most
+    frequent among the calibrated candidates (``class_counts``) become
+    ``favoured``, in order, and the rest keep their order after them.  The
+    rows of the box classifier, the box regressor and the mask predictor
+    move together, so every detection keeps its score, box and mask and
+    only its label changes.  Returns the permutation (new class -> old)."""
+    n = len(class_counts)
+    by_count = sorted(range(n), key=lambda c: (-class_counts[c], c))
+    perm = [0] * n
+    for new, old in zip(list(favoured) + [c for c in range(n) if c not in favoured], by_count):
+        perm[new] = old
+    box = "roi_heads.box_predictor."
+    for key in (box + "cls_score.weight", box + "cls_score.bias"):
+        ckpt[key] = ckpt[key][perm + [n]]  # the background row stays last
+    for key in (box + "bbox_pred.weight", box + "bbox_pred.bias"):
+        v = ckpt[key]
+        ckpt[key] = v.reshape(n, 4, *v.shape[1:])[perm].reshape(v.shape)
+    for key in ("roi_heads.mask_head.predictor.weight", "roi_heads.mask_head.predictor.bias"):
+        if key in ckpt:
+            ckpt[key] = ckpt[key][perm]
+    return perm
 
 
 def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dict:
@@ -414,7 +480,11 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
     ``--weights``, batches of TRACK_BATCH, the CSV under OUT_DIR), launch
     counts set to 0 just before; then each stage timed, one batch profiled,
     its syncs counted, and the first frame run again on the CPU (plain
-    versions) against the card."""
+    versions) against the card.  Returns the snapshots of every frame, the
+    calibrated checkpoint, the configs, the re-ID head, the Preprocessor, the
+    tracker and its stage times, batch ms, profile and peak memory.  The
+    checkpoint's classes are relabelled (``favour_classes``) so that most
+    detections fall in the MOTS classes, which phase 8 exports."""
     import torch
 
     from apse_uav_torch import _build
@@ -423,6 +493,7 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
     from apse_uav_torch.dcnn.engines import RcnnTracker
     from apse_uav_torch.dcnn.models.association import init_weights
     from apse_uav_torch.dcnn.ops import loops
+    from apse_uav_torch.evaluation.mots_export import COCO_TO_MOTS
     from apse_uav_torch.preproc import cuda_remap, remap
     from apse_uav_torch.utils.mask_geometry import dcnn_log_line
     from apse_uav_torch.utils.synthetic import detectron2_checkpoint
@@ -441,6 +512,9 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
     t0 = time.perf_counter()
     ckpt = detectron2_checkpoint(0, depth, 4)
     calibration = calibrate_background(ckpt, cfg, pre, frames_np, dev)
+    # Most detections in the MOTS classes (car, pedestrian), which the MOTS export keeps.
+    calibration["class_permutation"] = favour_classes(ckpt, calibration["class_counts"], sorted(COCO_TO_MOTS,
+                                                                                                reverse=True))
     torch.save({"model": {k: torch.from_numpy(v) for k, v in ckpt.items()}}, weights_path)
     ckpt_s = time.perf_counter() - t0
     snaps = {}
@@ -544,6 +618,318 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
         raise SmokeFailure(f"tracker GPU vs CPU: boxes differ by {box_err} px (limit 0.5)")
     if crow != rows[0]:
         raise SmokeFailure(f"tracker GPU vs CPU: CSV rows differ:\n{rows[0]}\n{crow}")
+    return {"snaps": snaps, "ckpt": ckpt, "cfg": cfg, "tcfg": tcfg, "assoc": assoc, "pre": pre,
+            "tracker": tracker, "stages": stages, "batch_ms": batch_ms, "profile": profile, "peak_gib": peak / 2**30}
+
+
+def bf16_convs(kernel_names) -> list[str]:
+    """The names among ``kernel_names`` of bfloat16 convolution kernels (cuDNN
+    names its forward convolutions ``...fprop...`` or ``...conv...``)."""
+    return [k for k in kernel_names if "bf16" in k.lower() and ("fprop" in k.lower() or "conv" in k.lower())]
+
+
+def mots_lines(recents, hw) -> list[str]:
+    """MOTS txt lines (RLE) of a sequence's tracker snapshots."""
+    from apse_uav_torch.evaluation.mots_export import file_lines_from_recent
+
+    return [ln for f, r in enumerate(recents) for ln in file_lines_from_recent(r, f, hw)]
+
+
+def mots_scores(gt_path: str, res_path: str, n: int) -> dict:
+    """compute_mots_metrics of the txt results at res_path against gt_path,
+    per MOTS class, with the number of objects (one per frame and track) in
+    each file."""
+    from apse_uav_torch.evaluation import mots
+
+    gt, res = {"0000": mots.load_txt(gt_path)}, {"0000": mots.load_txt(res_path)}
+    out = {"objects_gt": sum(len(v) for v in gt["0000"].values()),
+           "objects_res": sum(len(v) for v in res["0000"].values())}
+    for name, cid in (("car", mots.CLASS_CAR), ("pedestrian", mots.CLASS_PEDESTRIAN)):
+        total = mots.compute_mots_metrics(gt, res, {"0000": n - 1}, cid)[1]
+        out[name] = {"n_gt": total["n_gt"], "n_tr": total["n_tr"], "MOTSA": total["MOTSA"],
+                     "MOTSP": total["MOTSP"], "IDS": total["id_switches"], "sMOTSA": total["sMOTSA"]}
+    return out
+
+
+def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
+    """``tracker_test``'s loop (``track_sequence``) over the frames at full
+    width, ``--preprocess``, batches of TRACK_BATCH, from phase 7's calibrated
+    weights saved as the port's checkpoint (``--checkpoint``) and its default
+    re-ID head saved and loaded through ``--assoc_weights``; once in float32
+    and once with ``--bf16``, counts set to 0 before each.  Checks: K3-RGB
+    launched; the float32 run bit-identical to phase 7's snapshots; its MOTS
+    txt (the objects whose mask has pixels) scored against itself MOTSA =
+    MOTSP = 1, IDS = 0 for every MOTS class that holds objects (at least
+    one); the bf16 run with a track in every
+    frame, ids >= 1 and never reused, p2-p6 within BF16_MAP_LIMIT of the
+    float32 maps' max-abs and not equal to them; each run's p2-p6, RPN logits
+    and mask probabilities in its compute dtype (bfloat16, float32); a bf16
+    convolution kernel in the profiled batch of the bf16 run and none in the
+    float32 run's.  Prints the bf16 run scored against the float32 run, and
+    both runs' stage ms, frames/s, device busy, idle share, launches and peak
+    memory."""
+    import torch
+
+    from apse_uav_torch import _build
+    from apse_uav_torch.cli import tracker_test
+    from apse_uav_torch.dcnn.engines import full_fp32
+    from apse_uav_torch.dcnn.models.mask_rcnn import RPN_LEVELS
+    from apse_uav_torch.preproc import cuda_remap
+    from apse_uav_torch.train.checkpoint import save_state
+
+    n, (h, w) = frames_np.shape[0], frames_np.shape[1:3]
+    out_dir = os.path.join(OUT_DIR, "tracker_eval")
+    model_path = save_state(out_dir, "model", {"params": t7["ckpt"], "iteration": 0})
+    head_path = save_state(out_dir, "head", {"params": t7["assoc"]})
+    flags = ["--mots_evaluation", "unused", "--checkpoint", model_path, "--assoc_weights", head_path, "--depth",
+             str(t7["cfg"].depth), "--num_classes", str(t7["cfg"].roi.num_classes), "--confidence",
+             str(TRACK_CONFIDENCE), "--batch", str(TRACK_BATCH), "--preprocess",
+             os.path.join(REPO, "data", "cam_params.json"), "--device", dev.type]
+    runs = {}
+    try:
+        for name, extra in (("float32", []), ("bf16", ["--bf16"])):
+            args = tracker_test.build_parser().parse_args(flags + extra)
+            built = tracker_test.build_tracker(args, (h, w))
+            _build.reset_counts()
+            recents, stats = tracker_test.track_sequence(args, list(frames_np), built)
+            torch.cuda.synchronize()
+            counts = dict(_build.launches)
+            if counts.get(cuda_remap.K3_RGB, 0) == 0:
+                raise SmokeFailure(f"tracker_eval {name}: {cuda_remap.K3_RGB} not launched (counts {counts})")
+            path = os.path.join(out_dir, name, "0000.txt")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                f.writelines(ln + "\n" for ln in mots_lines(recents, (h, w)))
+            runs[name] = {"args": args, "built": built, "recents": recents, "stats": stats, "counts": counts,
+                          "txt": path}
+    finally:
+        for path in (model_path, head_path):
+            os.remove(path)
+
+    # float32 through --checkpoint / --assoc_weights: phase 7 bit for bit.
+    for i, (got, want) in enumerate(zip(runs["float32"]["recents"], [t7["snaps"][i] for i in range(n)])):
+        for k, v in want.items():
+            if not np.array_equal(got[k], v):
+                raise SmokeFailure(f"tracker_eval float32 frame {i}: {k} differs from phase 7's")
+    # An object whose pasted mask is empty (cropped away by a higher-scoring
+    # overlap, or every probability below 0.5) is exported as the reference
+    # exports it, but its mask IoU is 0 even against itself: the self-score
+    # reads the objects with pixels.
+    from apse_uav_torch.evaluation import rle
+
+    with open(runs["float32"]["txt"]) as f:
+        lines = f.read().splitlines()
+    kept = [ln for ln in lines if rle.area({"size": [h, w], "counts": ln.split(" ")[5]}) > 0]
+    nonempty = os.path.join(out_dir, "float32_nonempty", "0000.txt")
+    os.makedirs(os.path.dirname(nonempty), exist_ok=True)
+    with open(nonempty, "w") as f:
+        f.writelines(ln + "\n" for ln in kept)
+    self_score = mots_scores(nonempty, nonempty, n)
+    self_score["objects_exported"], self_score["objects_with_empty_mask"] = len(lines), len(lines) - len(kept)
+    held = [c for c in ("car", "pedestrian") if self_score[c]["n_gt"] > 0]
+    if not held:
+        raise SmokeFailure(f"tracker_eval: no MOTS class holds a detection: {self_score}")
+    for c in held:
+        t = self_score[c]
+        if t["MOTSA"] != 1.0 or t["MOTSP"] != 1.0 or t["IDS"] != 0:
+            raise SmokeFailure(f"tracker_eval float32 against itself, {c}: {t}")
+
+    # bf16: a track in every frame, ids >= 1 never reused; maps near float32's.
+    seen: set = set()
+    for i, r in enumerate(runs["bf16"]["recents"]):
+        ids = r["ids"][r["valid"]]
+        if len(ids) == 0 or (ids < 1).any() or len(set(ids.tolist())) != len(ids):
+            raise SmokeFailure(f"tracker_eval bf16 frame {i}: ids {ids.tolist()}")
+        new = set(ids.tolist()) - seen
+        if seen and new and min(new) <= max(seen):
+            raise SmokeFailure(f"tracker_eval bf16 frame {i}: new ids {sorted(new)} not above {max(seen)}")
+        seen |= new
+    # Each run's maps, RPN logits and mask probabilities in its compute dtype.
+    x = torch.from_numpy(frames_np[:TRACK_BATCH]).to(dev)
+    maps, dtypes = {}, {}
+    for name in runs:
+        tracker, pre = runs[name]["built"]
+        model = tracker.predictor.model
+        with torch.no_grad(), full_fp32():
+            dets, feats = model.inference(tracker.predictor.resize(pre(x, with_gray=False)[0]))
+            logits, _ = model.proposal_generator["rpn_head"]({k: feats[k] for k in RPN_LEVELS})
+        got = {**{k: feats[k].dtype for k in RPN_LEVELS}, "rpn_logits": logits["p2"].dtype,
+               "mask_probs": dets["masks"].dtype}
+        want = torch.bfloat16 if name == "bf16" else torch.float32
+        dtypes[name] = {k: str(v) for k, v in got.items()}
+        if any(v != want for v in got.values()):
+            raise SmokeFailure(f"tracker_eval {name}: dtypes {dtypes[name]}, want {want}")
+        maps[name] = {k: feats[k].float() for k in RPN_LEVELS}
+        del dets, feats, logits
+    map_err = {k: float((maps["bf16"][k] - v).abs().max() / v.abs().max()) for k, v in maps["float32"].items()}
+    del maps
+    bf16_vs_f32 = mots_scores(runs["float32"]["txt"], runs["bf16"]["txt"], n)
+
+    # Both runs' stages, a batch end to end, its profile and peak memory.
+    batch_np = frames_np[:TRACK_BATCH]
+    timing = {}
+    for name, run in runs.items():
+        tracker, pre = run["built"]
+
+        def batch():
+            xb = torch.from_numpy(batch_np).to(dev)
+            return tracker.materialize(tracker.process_frames_async(pre(xb, with_gray=False)[0]))
+
+        stages = tracker_stages(tracker, pre, batch_np, dev)
+        batch_ms = wall_ms(batch)
+        torch.cuda.reset_peak_memory_stats()
+        batch()
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_call(batch, batch_ms, all_kernels=True)
+        convs = bf16_convs(prof["kernel_names"])
+        if bool(convs) != (name == "bf16"):
+            raise SmokeFailure(f"tracker_eval {name}: bf16 convolution kernels in the profiled batch: {convs[:4]} "
+                               f"(kernels named bf16: {[k for k in prof['kernel_names'] if 'bf16' in k.lower()][:8]})")
+        timing[name] = {"stage_ms": stages, "batch_ms": round(batch_ms, 3),
+                        "frames_per_s": round(TRACK_BATCH * 1e3 / batch_ms, 3),
+                        "device_busy_ms": prof["device_busy_ms"], "device_idle_share": prof["device_idle_share"],
+                        "kernel_launches": prof["kernel_launches"], "peak_mem_gib": round(peak / 2**30, 3),
+                        "top_kernels": prof["top_kernels"][:6], "bf16_conv_kernels": len(convs),
+                        "cli_s": round(run["stats"]["seconds"], 3),
+                        "launches": run["counts"]}
+    log({"phase": "tracker_eval", "frames": n, "size": [w, h], "batch": TRACK_BATCH,
+         "self_score_float32": self_score, "bf16_vs_float32": bf16_vs_f32, "bf16_map_rel_err": map_err,
+         "bf16_map_limit": BF16_MAP_LIMIT, "dtypes": dtypes, "bf16_max_id": max(seen),
+         "tracks_bf16": [int(r["valid"].sum()) for r in runs["bf16"]["recents"]], **timing, "card": card})
+    if max(map_err.values()) > BF16_MAP_LIMIT:
+        raise SmokeFailure(f"tracker_eval: bf16 p2-p6 differ from float32 by {map_err} of their max-abs "
+                           f"(limit {BF16_MAP_LIMIT})")
+    if min(map_err.values()) == 0.0:
+        raise SmokeFailure(f"tracker_eval: a bf16 map equals its float32 map exactly: {map_err}")
+    return {"built": runs["float32"]["built"], "recents": runs["float32"]["recents"]}
+
+
+def assoc_step(state, det, emb, tcfg, metric: str, hw):
+    """One frame's association under ``metric`` (``embeddings_exact``: the
+    Jonker-Volgenant solve), then prune, snapshot and age."""
+    import dataclasses as dc
+
+    from apse_uav_torch.dcnn import structures, tracker as tr
+
+    if metric != "embeddings_exact":
+        return tr.tracker_step_assoc(state, det, emb, dc.replace(tcfg, association_metric=metric), hw)
+    state = tr.associate_embeddings(state, det, emb, tcfg.embedding_dist_threshold, exact=True)
+    state = structures.delete_undetected(state, tcfg.delete_after_undetected)
+    return structures.finish_association(state), structures.recent_objects(state)
+
+
+def association_phase(frames_np, t8: dict, card: str, dev) -> dict:
+    """Phase 8's float32 detections and embeddings through ``bbox_center_dist``,
+    ``mask_iou`` and ``embeddings(exact=True)`` from an empty store, on the
+    card and on the CPU: identical valid, ids and classes frame by frame;
+    each metric's ms per batch.  Then ``linear_sum_assignment`` and
+    ``auction_assignment`` on the card on seeded 32x32 costs, both ways: JV's
+    cost equal to scipy's within float32 rounding, the auction within n x
+    its last eps (spread / 4096); ms per solve."""
+    import scipy.optimize
+    import torch
+
+    from apse_uav_torch.dcnn import hungarian, structures
+
+    tracker, pre = t8["built"]
+    n, hw = frames_np.shape[0], tuple(frames_np.shape[1:3])
+    batches = []
+    for b in range(0, n, TRACK_BATCH):
+        dets, feats = tracker.predictor(pre(torch.from_numpy(frames_np[b:b + TRACK_BATCH]).to(dev),
+                                            with_gray=False)[0])
+        batches.append(tracker.embed(dets, feats))
+    tcfg = tracker.cfg
+    res = {}
+    for metric in ("bbox_center_dist", "mask_iou", "embeddings_exact"):
+        ids = {}
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            state = structures.init_track_state(tcfg.max_tracks, tcfg.embedding_dim, device=device)
+            out = []
+            for det, emb in batches:
+                for t in range(emb.shape[0]):
+                    state, recent = assoc_step(state, {k: v[t].to(device) for k, v in det.items()},
+                                               emb[t].to(device), tcfg, metric, hw)
+                    out.append({k: recent[k].cpu().numpy() for k in ("valid", "ids", "classes")})
+            ids[key] = out
+        for i, (g, c) in enumerate(zip(ids["card"], ids["cpu"])):
+            for k in g:
+                if not np.array_equal(g[k], c[k]):
+                    raise SmokeFailure(f"association {metric} frame {i}: {k} differ, card {g[k].tolist()} "
+                                       f"CPU {c[k].tolist()}")
+        det0, emb0 = batches[0]
+        state0 = structures.init_track_state(tcfg.max_tracks, tcfg.embedding_dim, device=dev)
+        for t in range(emb0.shape[0]):  # the store the first batch leaves
+            state0, _ = assoc_step(state0, {k: v[t] for k, v in det0.items()}, emb0[t], tcfg, metric, hw)
+
+        def one_batch():
+            s = state0
+            for t in range(emb0.shape[0]):
+                s, _ = assoc_step(s, {k: v[t] for k, v in det0.items()}, emb0[t], tcfg, metric, hw)
+            return s
+
+        res[metric] = {"ms_per_batch": round(wall_ms(one_batch), 3),
+                       "tracks": [int(r["valid"].sum()) for r in ids["card"]],
+                       "max_id": int(max(int(r["ids"][r["valid"]].max(initial=0)) for r in ids["card"]))}
+    solvers = {}
+    for seed in range(3):
+        c = np.random.default_rng(seed).uniform(0, 4, (32, 32)).astype(np.float32)
+        for maximize in (False, True):
+            r, sc = scipy.optimize.linear_sum_assignment(c, maximize=maximize)
+            best = float(c[r, sc].astype(np.float64).sum())
+            ct = torch.from_numpy(c).to(dev)
+            for name, fn, limit in (("jv", hungarian.linear_sum_assignment, 1e-4),
+                                    ("auction", hungarian.auction_assignment,
+                                     32 * float(c.max() - c.min()) / 4096 + 1e-4)):
+                cols = fn(ct, maximize)[1].cpu().numpy()
+                got = float(c[np.arange(32), cols].astype(np.float64).sum())
+                if sorted(cols.tolist()) != list(range(32)) or abs(got - best) > limit:
+                    raise SmokeFailure(f"{name} seed {seed} maximize {maximize}: cost {got}, scipy {best}, "
+                                       f"limit {limit}")
+                entry = solvers.setdefault(name, {"max_cost_gap": 0.0})
+                entry["max_cost_gap"] = max(entry["max_cost_gap"], abs(got - best))
+                if seed == 0 and not maximize:
+                    entry["ms_per_solve"] = round(wall_ms(lambda: fn(ct, maximize)), 3)
+    log({"phase": "association", "frames": n, "metrics": res, "solvers": solvers, "card": card})
+    return res
+
+
+def detector_phase(frames_np, card: str, dev) -> dict:
+    """``detector_test``'s ``detect`` at ``aerial_view_test``'s defaults (R50-FPN,
+    3 classes, no mask head, confidence 0.5) from a seeded checkpoint (its
+    background bias calibrated on the frames) on 2 frames, on the card and on
+    the CPU: the same valid detections and classes, boxes within 0.5 px."""
+    import torch
+
+    from apse_uav_torch.cli import aerial_view_test, detector_test, track_uav
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint
+
+    two = frames_np[:2]
+    out = {}
+    ckpt = detectron2_checkpoint(1, 50, 3)
+    for key, device in (("card", dev.type), ("cpu", "cpu")):
+        args = detector_test.build_parser().parse_args(aerial_view_test.aerial_argv(
+            ["--images", "unused", "--weights", "unused", "--device", device]))
+        if key == "card":
+            calibration = calibrate_background(ckpt, track_uav.model_config(args), lambda x, with_gray: (x, None),
+                                               two, dev, per_frame=4)
+        pred = detector_test.build_predictor(args, two.shape[1:3], ckpt)
+        t0 = time.perf_counter()
+        out[key] = [detector_test.detect(pred, f) for f in two]
+        out[key + "_s"] = time.perf_counter() - t0
+    box_err = 0.0
+    for i, (g, c) in enumerate(zip(out["card"], out["cpu"])):
+        if not np.array_equal(g["valid"], c["valid"]) or not np.array_equal(g["classes"][g["valid"]],
+                                                                             c["classes"][c["valid"]]):
+            raise SmokeFailure(f"detector frame {i}: valid or classes differ: {g['classes'][g['valid']].tolist()} "
+                               f"vs {c['classes'][c['valid']].tolist()}")
+        box_err = max(box_err, float(np.abs(g["boxes"][g["valid"]] - c["boxes"][c["valid"]]).max(initial=0.0)))
+    if box_err > 0.5:
+        raise SmokeFailure(f"detector: boxes differ by {box_err} px between the card and the CPU (limit 0.5)")
+    res = {"detections": [int(g["valid"].sum()) for g in out["card"]], "box_err_px": box_err,
+           "calibration": calibration, "card_s": round(out["card_s"], 3), "cpu_s": round(out["cpu_s"], 3)}
+    log({"phase": "detector", **res, "card": card})
+    if min(res["detections"]) < 1:
+        raise SmokeFailure(f"detector: a frame without a detection above the confidence: {res['detections']}")
     return res
 
 
@@ -885,7 +1271,15 @@ def main() -> int:
     del cpipe, rand, rand_hwc, rand_pooled, frames_f32
 
     # -- 7. the DCNN tracking path (track_uav) at full width ----------------------
-    tracker_phase(frames_hwc.cpu().numpy(), mtx, dist, card, dev)
+    frames_np = frames_hwc.cpu().numpy()
+    t7 = tracker_phase(frames_np, mtx, dist, card, dev)
+
+    # -- 8.-10. tracker_test (float32 and bf16), association, detector_test -------
+    t8 = tracker_eval_phase(frames_np, t7, card, dev)
+    del t7
+    association_phase(frames_np, t8, card, dev)
+    del t8
+    detector_phase(frames_np, card, dev)
 
     print(card)
     log({"kernels": kernels})

@@ -33,21 +33,28 @@ def cam():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter (conftest imports JAX here), importing the port
-    and its entry points leaves jax and the JAX package out of sys.modules;
-    no port source names the JAX package."""
+    """In a fresh interpreter (conftest imports JAX here), importing every
+    module of the port (a walk of the package) leaves jax and the JAX package
+    out of sys.modules, and the libraries the card machine lacks (cv2, PIL,
+    matplotlib, orbax) too: those are imported only inside the functions that
+    read or write images, videos or plots.  No port source names the JAX
+    package."""
     code = (
-        "import sys\n"
-        "import apse_uav_torch, apse_uav_torch.aruco.pipeline, apse_uav_torch.cli.aruco_detect\n"
-        "import apse_uav_torch.convert, apse_uav_torch.utils.synthetic, apse_uav_torch.utils.csv_io\n"
-        "import apse_uav_torch.preproc.cuda_pool, apse_uav_torch.preproc.cuda_remap\n"
-        "from apse_uav_torch.preproc.remap import Preprocessor\n"
-        "from apse_uav_torch.aruco.detector import ArucoDetector\n"
-        "import apse_uav_torch.cli.track_uav, apse_uav_torch.dcnn.engines, apse_uav_torch.dcnn.weights\n"
-        "import apse_uav_torch.utils.mask_geometry, apse_uav_torch.utils.visualizer\n"
-        "from apse_uav_torch.dcnn.engines import RcnnTracker, TrackPredictor\n"
+        "import importlib, pkgutil, sys\n"
+        "import apse_uav_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(apse_uav_torch.__path__, 'apse_uav_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "need = {'apse_uav_torch.cli.tracker_test', 'apse_uav_torch.cli.detector_test', 'apse_uav_torch.dcnn.flax_init',\n"
+        "        'apse_uav_torch.evaluation.rle', 'apse_uav_torch.evaluation.mots', 'apse_uav_torch.train.checkpoint',\n"
+        "        'apse_uav_torch.evaluation.mots_export', 'apse_uav_torch.cli.mots_vis', 'apse_uav_torch.cli.mots_eval',\n"
+        "        'apse_uav_torch.cli.images_to_txt', 'apse_uav_torch.cli.aerial_view_test', 'apse_uav_torch.cli.track_uav',\n"
+        "        'apse_uav_torch.utils.videowriter', 'apse_uav_torch.aruco.pipeline', 'apse_uav_torch.dcnn.engines'}\n"
+        "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'apse_uav_tpu'))]\n"
         "assert not bad, bad\n"
+        "lazy = [m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL', 'matplotlib', 'orbax')]\n"
+        "assert not lazy, lazy\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -350,3 +350,60 @@ def test_tracker_dispatch_syncs_only_to_test_convergence(dev):
             torch.cuda.set_sync_debug_mode("default")
     syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
     assert syncs == loops.checks["count"] > 0, (syncs, loops.checks["count"])
+
+
+def test_bf16_maps_near_float32_and_cpu(dev):
+    """The tiny R50-FPN with compute_dtype="bfloat16" on the card (cuDNN bf16):
+    bfloat16 p2-p6 within 3e-2 of each map's max-abs of the float32 maps and
+    of the bf16 CPU run (the CPU test against the reference measures its own
+    bf16-to-float32 gap at 1.2e-2 on this model)."""
+    import dataclasses
+
+    from apse_uav_torch.dcnn.config import mask_rcnn_r50_fpn
+    from apse_uav_torch.dcnn.engines import TrackPredictor
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint
+
+    base = dataclasses.replace(mask_rcnn_r50_fpn(2), input=dataclasses.replace(mask_rcnn_r50_fpn(2).input,
+                                                                                 min_size_test=64, max_size_test=128))
+    ckpt = detectron2_checkpoint(0, 50, 2)
+    frames = np.random.default_rng(1).integers(0, 255, (2, 100, 160, 3), np.uint8)
+    maps = {}
+    for key, dtype, device in (("f32", "float32", "cuda"), ("bf16", "bfloat16", "cuda"), ("bf16_cpu", "bfloat16", "cpu")):
+        pred = TrackPredictor(dataclasses.replace(base, compute_dtype=dtype), ckpt, (100, 160), device=device)
+        dets, feats = pred(frames)
+        maps[key] = {n: feats[n].float().cpu() for n in ("p2", "p3", "p4", "p5", "p6")}
+        assert (feats["p2"].dtype == torch.bfloat16) == (dtype == "bfloat16")
+        assert dets["boxes"].dtype == torch.float32 and dets["scores"].dtype == torch.float32
+    for n, want in maps["f32"].items():
+        scale = float(want.abs().max())
+        assert float((maps["bf16"][n] - want).abs().max()) <= 3e-2 * scale, n
+        assert float((maps["bf16"][n] - maps["bf16_cpu"][n]).abs().max()) <= 3e-2 * scale, n
+
+
+@pytest.mark.parametrize("solver", ["linear_sum_assignment", "auction_assignment"])
+def test_solvers_cuda_match_cpu(dev, solver):
+    """The exact and the eps-scaled assignment on the card against the CPU on
+    seeded 32x32 costs, both ways: identical assignments."""
+    from apse_uav_torch.dcnn import hungarian
+
+    fn = getattr(hungarian, solver)
+    for seed in range(3):
+        c = torch.from_numpy(np.random.default_rng(seed).uniform(0, 4, (32, 32)).astype(np.float32))
+        for maximize in (False, True):
+            assert torch.equal(fn(c.to(dev), maximize)[1].cpu(), fn(c, maximize)[1]), (seed, maximize)
+
+
+@pytest.mark.parametrize("metric", ["bbox_center_dist", "mask_iou", "embeddings"])
+def test_association_metrics_cuda_match_cpu(dev, metric):
+    """The tiny tracker under each association metric on the card against
+    its CPU run on 3 frames: identical valid, ids and classes."""
+    import dataclasses
+
+    frames = np.random.default_rng(1).integers(0, 255, (3, 100, 160, 3), np.uint8)
+    out = {}
+    for device in ("cuda", "cpu"):
+        tracker = _tiny_tracker(device)
+        tracker.cfg = dataclasses.replace(tracker.cfg, association_metric=metric)
+        out[device] = tracker.process_frames(frames)
+    for k in ("valid", "ids", "classes"):
+        np.testing.assert_array_equal(out["cuda"][k], out["cpu"][k], err_msg=k)

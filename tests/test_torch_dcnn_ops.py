@@ -1,6 +1,7 @@
 """PyTorch port, DCNN ops: box math, exact NMS, ROIAlign, the flat
-multi-level ROIAlign, the gated auction and the fixed-point loop, against the
-JAX package on the CPU.
+multi-level ROIAlign, the gated auction, the exact Jonker-Volgenant solver,
+the eps-scaled auction and the fixed-point loop, against the JAX package
+(and scipy) on the CPU.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 Discrete outputs (keep masks, assignments) must be identical; float outputs
@@ -10,6 +11,7 @@ are held to the tolerance each test states.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.optimize
 import torch
 
 from apse_uav_tpu.dcnn import hungarian as jhung
@@ -193,3 +195,44 @@ def test_pad_cost_matches_jax():
     np.testing.assert_array_equal(
         thung.pad_cost(torch.from_numpy(cost), torch.from_numpy(rv), torch.from_numpy(cv)).numpy(),
         np.asarray(jhung.pad_cost(jnp.asarray(cost), jnp.asarray(rv), jnp.asarray(cv))))
+
+
+def _cost(n: int, seed: int) -> np.ndarray:
+    """Uniform costs in [0, 4) (the tracker's embedding distances); odd seeds
+    rounded to integers, so many optima tie."""
+    c = np.random.default_rng(seed).uniform(0, 4, (n, n)).astype(np.float32)
+    return np.round(c) if seed % 2 else c
+
+
+@pytest.mark.parametrize("maximize", [False, True])
+@pytest.mark.parametrize("n,seed", [(1, 0), (2, 1), (5, 2), (8, 3), (16, 4), (32, 5), (32, 6)])
+def test_linear_sum_assignment_matches_jax_and_scipy(n, seed, maximize):
+    """Jonker-Volgenant: the reference's assignment exactly (ties included),
+    and scipy's optimal cost within float32 rounding (1e-5 per row)."""
+    c = _cost(n, seed)
+    rows, cols = thung.linear_sum_assignment(torch.from_numpy(c), maximize)
+    np.testing.assert_array_equal(rows.numpy(), np.arange(n))
+    np.testing.assert_array_equal(cols.numpy(), np.asarray(jhung.linear_sum_assignment(jnp.asarray(c), maximize)[1]))
+    r, sc = scipy.optimize.linear_sum_assignment(c, maximize=maximize)
+    assert sorted(cols.tolist()) == list(range(n))
+    assert abs(float(c[rows.numpy(), cols.numpy()].sum()) - float(c[r, sc].sum())) <= 1e-5 * n
+
+
+@pytest.mark.parametrize("max_sweeps", [256, 3])
+@pytest.mark.parametrize("n,seed", [(1, 0), (5, 2), (8, 3), (16, 4), (32, 5), (32, 6)])
+def test_auction_assignment_matches_jax_and_scipy(n, seed, max_sweeps):
+    """The eps-scaled auction: the reference's assignment exactly, both ways
+    (``maximize``), also when the budget runs out and leftover rows take the
+    free columns (a 3-sweep budget; integer costs with many ties exhaust even
+    the full 256 at n = 32, in both packages).  On continuous costs with the
+    full budget, within n x the last eps (spread / 4096) of scipy's optimum."""
+    c = _cost(n, seed)
+    for maximize in (False, True):
+        _, cols = thung.auction_assignment(torch.from_numpy(c), maximize, max_sweeps)
+        want = jhung.auction_assignment(jnp.asarray(c), maximize=maximize, max_sweeps=max_sweeps)[1]
+        np.testing.assert_array_equal(cols.numpy(), np.asarray(want))
+        assert sorted(cols.tolist()) == list(range(n))
+        if max_sweeps == 256 and seed % 2 == 0:
+            r, sc = scipy.optimize.linear_sum_assignment(c, maximize=maximize)
+            gap = abs(float(c[np.arange(n), cols.numpy()].sum()) - float(c[r, sc].sum()))
+            assert gap <= n * (float(c.max() - c.min()) + 1e-6) / 4096 + 1e-5 * n

@@ -236,5 +236,103 @@ def test_detectron2_checkpoint_seeded_finite_and_decisive():
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MaskRCNN(mask_rcnn_r101_c4(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MaskRCNN(mask_rcnn_r101_fpn(4, compute_dtype="bfloat16"))
+
+
+# -- bfloat16 compute (compute_dtype="bfloat16") ---------------------------------
+
+
+def _bt(x):
+    """A JAX output as a torch tensor, bfloat16 kept bfloat16 (exactly)."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(x))
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def bf16_models(models):
+    """The same checkpoint and images in both packages with compute_dtype="bfloat16"."""
+    jcfg = dataclasses.replace(models["jcfg"], compute_dtype="bfloat16")
+    jmodel, jparams = jax_mask_rcnn(jcfg, models["ckpt"])
+    tmodel = MaskRCNN(port_config(jcfg)).eval()
+    tW.load_detectron2(tmodel, models["ckpt"])
+    stages, dets = _jax_stages(jmodel, jparams, jnp.asarray(models["images"]))
+    return {"jcfg": jcfg, "tmodel": tmodel, "j": stages, "jdets": dets}
+
+
+def test_bf16_backbone_matches_jax(bf16_models, models):
+    """bf16 res2-res5 and p2-p6 against the reference's bf16 path: bfloat16
+    maps, each within 3e-2 of its max-abs.  The two libraries accumulate a
+    convolution in different orders, which flips the bf16 rounding (2^-8
+    relative) of ~1e-4 of the outputs a layer; 40+ layers amplify the flips
+    to 1.3e-2 of max-abs (measured), the size of the reference's own bf16
+    gap to its float32 maps (1.2e-2, checked here too)."""
+    m, j = bf16_models["tmodel"], bf16_models["j"]
+    with torch.no_grad():
+        feats = m.features(_t(models["images"]))
+    for name, want in j["feats"].items():
+        assert feats[name].dtype == torch.bfloat16 and want.dtype.name == "bfloat16", name
+        assert _rel(_f32(feats[name]), _f32(want)) <= 3e-2, (name, _rel(_f32(feats[name]), _f32(want)))
+        assert _rel(_f32(want), models["j"]["feats"][name]) <= 3e-2, name
+
+
+def test_bf16_rpn_and_heads_on_jax_inputs(bf16_models):
+    """Each bf16 stage on the reference's bf16 inputs.  RPN head: logits and
+    deltas bfloat16, within 8e-3 of their max-abs (two bf16 steps).  Proposal
+    selection on the reference's logits and deltas: identical order, validity
+    and bf16 scores (ties by the lower index), float32 boxes within 0.1 px
+    (bf16 deltas, exp in bf16).  ROIAlign float32 within 1e-5; the box head
+    float32 on bf16-rounded inputs, within 1e-5; mask logits bfloat16 within
+    8e-3; box inference identical classes and validity."""
+    m, j, cfg = bf16_models["tmodel"], bf16_models["j"], port_config(bf16_models["jcfg"])
+    feats = {n: _bt(v) for n, v in j["feats"].items()}
+    with torch.no_grad():
+        logits, deltas = m.proposal_generator["rpn_head"]({n: feats[n] for n in RPN_LEVELS})
+    for name in RPN_LEVELS:
+        assert logits[name].dtype == torch.bfloat16
+        assert _rel(_f32(logits[name]), _f32(j["logits"][name])) <= 8e-3, name
+        assert _rel(_f32(deltas[name]), _f32(j["deltas"][name])) <= 8e-3, name
+    level_shapes = {n: j["feats"][n].shape[1:3] for n in RPN_LEVELS}
+    boxes, scores, valid = t_select_proposals({n: _bt(j["logits"][n]) for n in RPN_LEVELS},
+                                              {n: _bt(j["deltas"][n]) for n in RPN_LEVELS}, level_shapes, HW,
+                                              cfg.anchors, cfg.rpn)
+    assert scores.dtype == torch.bfloat16 and boxes.dtype == torch.float32
+    np.testing.assert_array_equal(valid.numpy(), j["proposal_valid"])
+    np.testing.assert_array_equal(_f32(scores), _f32(j["proposal_scores"]))
+    np.testing.assert_allclose(boxes.numpy(), j["proposals"], rtol=0, atol=0.1)
+    pooled = trh.fpn_roi_align({n: feats[n] for n in trh.POOL_LEVELS}, _t(j["proposals"]),
+                               cfg.roi.box_pooler_resolution, cfg.roi.pooler_sampling_ratio)
+    assert pooled.dtype == torch.float32 and _rel(pooled.numpy(), j["pooled"]) <= 1e-5
+    heads = m.roi_heads
+    nb, p = j["pooled"].shape[:2]
+    with torch.no_grad():
+        cls_logits, box_deltas = heads.box_predictor(heads.box_head(_t(j["pooled"]).reshape(nb * p, -1)))
+        mask_logits = heads.mask_head(_t(j["mask_pooled"]).reshape(-1, *j["mask_pooled"].shape[2:]))
+    assert cls_logits.dtype == torch.float32 and mask_logits.dtype == torch.bfloat16
+    assert _rel(cls_logits.reshape(nb, p, -1).numpy(), j["cls_logits"]) <= 1e-5
+    assert _rel(box_deltas.reshape(j["box_deltas"].shape).numpy(), j["box_deltas"]) <= 1e-5
+    assert _rel(_f32(mask_logits).reshape(j["mask_logits"].shape), _f32(j["mask_logits"])) <= 8e-3
+    det = trh.box_inference(_t(j["cls_logits"]), _t(j["box_deltas"]), _t(j["proposals"]), _t(j["proposal_valid"]),
+                            HW, cfg.roi)
+    np.testing.assert_array_equal(det["valid"].numpy(), j["det_valid"])
+    np.testing.assert_array_equal(det["classes"].numpy(), j["det_classes"])
+    np.testing.assert_allclose(det["boxes"].numpy(), j["det_boxes"], rtol=0, atol=1e-4)
+
+
+def test_bf16_inference_dtypes_match_jax(bf16_models, models):
+    """The whole bf16 model: the reference's output dtypes (boxes and scores
+    float32, masks bfloat16, bf16 maps), the same detections valid, masks in
+    [0, 1]."""
+    with torch.no_grad():
+        det, feats = bf16_models["tmodel"].inference(_t(models["images"]))
+    want = bf16_models["jdets"]
+    for k, v in want.items():
+        got = str(det[k].dtype).replace("torch.", "")
+        assert got == v.dtype.name or (k == "classes" and got == "int64"), (k, got, v.dtype)
+    np.testing.assert_array_equal(det["valid"].numpy(), want["valid"])
+    assert all(f.dtype == torch.bfloat16 for f in feats.values())
+    assert 0.0 <= float(det["masks"].min()) and float(det["masks"].max()) <= 1.0

@@ -1,6 +1,7 @@
 """PyTorch port, the tracker against the JAX package on the CPU: re-ID
-embeddings (the patch-and-matmul ROIAlign), the detection cap, a 6-frame
-association sequence; and the ``track_uav`` CLI on the CPU.
+embeddings (the patch-and-matmul ROIAlign), the detection cap, 6-frame
+association sequences under every metric and the exact solver,
+``paste_mask_lowres``; and the ``track_uav`` CLI on the CPU.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 """
@@ -135,10 +136,96 @@ def test_tracker_sequence_matches_jax():
 
 
 def test_unported_metrics_raise():
-    cfg = convert.tracker_config(dataclasses.asdict(JTrackerConfig(association_metric="mask_iou")))
+    """Every metric of the reference is ported; an unknown one raises
+    ValueError, as in the reference."""
+    cfg = convert.tracker_config(dataclasses.asdict(JTrackerConfig(association_metric="nearest")))
     state = tstructures.init_track_state(4, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="nearest"):
         ttracker.tracker_step_assoc(state, {}, torch.zeros(1, 8), cfg, IMAGE_HW)
+
+
+def _moving_sequence(rng, frames=6, d=5):
+    """Objects that persist with small box, mask and embedding drift (and two
+    that sit close together), in shuffled order; objects 5-9 replace 0-4 from
+    frame 2 on; one invalid slot a frame after the first."""
+    base_emb = rng.normal(size=(10, E))
+    xy = rng.uniform(0, 110, (10, 2))
+    xy[1] = xy[0] + 4.0  # two objects whose centres are close
+    wh = rng.uniform(12, 40, (10, 2))
+    masks = rng.uniform(0, 1, (10, 28, 28))
+    seq = []
+    for t in range(frames):
+        ids = rng.permutation(d) + (0 if t < 2 else d)
+        emb = base_emb[ids] + rng.normal(scale=0.05, size=(d, E))
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        p = xy[ids] + rng.normal(scale=2.0, size=(d, 2))
+        det = {"boxes": np.concatenate([p, p + wh[ids]], -1).astype(np.float32),
+               "scores": rng.uniform(0.5, 1, d).astype(np.float32),
+               "classes": rng.integers(0, 3, d).astype(np.int32),
+               "masks": np.clip(masks[ids] + rng.normal(scale=0.1, size=(d, 28, 28)), 0, 1).astype(np.float32),
+               "valid": np.ones(d, bool)}
+        det["valid"][t % d] = t == 0
+        seq.append((det, emb.astype(np.float32)))
+    return seq
+
+
+@pytest.mark.parametrize("metric", ["embeddings", "embeddings_exact", "bbox_center_dist", "mask_iou"])
+def test_association_metrics_match_jax(metric):
+    """6 frames of association under each metric (and ``exact=True``, the
+    Jonker-Volgenant solve of the padded problem) on the same detections and
+    embeddings: identical ids, ``valid``, classes and track state every frame,
+    float fields within 1e-6.  Thresholds are set so that each metric both
+    matches and refuses pairs."""
+    jcfg = JTrackerConfig(max_tracks=6, max_detections=5, embedding_dim=E, roi_size=4, delete_after_undetected=1,
+                          association_metric=metric.replace("_exact", ""), center_dist_threshold=60.0,
+                          mask_iou_threshold=0.5)
+    tcfg = convert.tracker_config(dataclasses.asdict(jcfg))
+    jstate = jstructures.init_track_state(6, E)
+    tstate = tstructures.init_track_state(6, E, device="cpu")
+    if metric == "embeddings_exact":
+        def jstep(s, det, emb):
+            s = jtracker.associate_embeddings(s, det, emb, jcfg.embedding_dist_threshold, exact=True)
+            s = jstructures.delete_undetected(s, jcfg.delete_after_undetected)
+            return jstructures.finish_association(s), jstructures.recent_objects(s)
+
+        def tstep(s, det, emb):
+            s = ttracker.associate_embeddings(s, det, emb, tcfg.embedding_dist_threshold, exact=True)
+            s = tstructures.delete_undetected(s, tcfg.delete_after_undetected)
+            return tstructures.finish_association(s), tstructures.recent_objects(s)
+    else:
+        def jstep(s, det, emb):
+            return jtracker.tracker_step_assoc(s, det, emb, jcfg, IMAGE_HW)
+
+        def tstep(s, det, emb):
+            return ttracker.tracker_step_assoc(s, det, emb, tcfg, IMAGE_HW)
+    jstep = jax.jit(jstep)
+    matched = 0
+    for det, emb in _moving_sequence(np.random.default_rng(5)):
+        jstate, jrecent = jstep(jstate, {k: jnp.asarray(v) for k, v in det.items()}, jnp.asarray(emb))
+        before = int(tstate["next_id"])
+        tstate, trecent = tstep(tstate, {k: torch.from_numpy(v) for k, v in det.items()}, torch.from_numpy(emb))
+        matched += int(det["valid"].sum()) - (int(tstate["next_id"]) - before)
+        for k in ("valid", "ids", "classes"):
+            np.testing.assert_array_equal(trecent[k].numpy(), np.asarray(jrecent[k]), err_msg=k)
+        for k in ("boxes", "scores", "masks", "embeddings"):
+            np.testing.assert_allclose(trecent[k].numpy(), np.asarray(jrecent[k]), rtol=0, atol=1e-6, err_msg=k)
+        for k in ("active", "ids", "frames_since_detected", "next_id"):
+            np.testing.assert_array_equal(tstate[k].numpy(), np.asarray(jstate[k]), err_msg=k)
+    assert matched > 0
+
+
+def test_paste_mask_lowres_matches_jax():
+    """Masks pasted on a 64x64 grid (boxes partly outside the image, one
+    degenerate): identical to the reference, mask by mask."""
+    rng = np.random.default_rng(3)
+    det = _dets(rng, 1, 8)
+    boxes, masks = det["boxes"][0], det["masks"][0]
+    boxes[0, 2] = boxes[0, 0]
+    got = ttracker.paste_mask_lowres(torch.from_numpy(masks), torch.from_numpy(boxes), (64, 64), IMAGE_HW).numpy()
+    for i in range(8):
+        want = np.asarray(jtracker.paste_mask_lowres(jnp.asarray(masks[i]), jnp.asarray(boxes[i]), (64, 64),
+                                                     IMAGE_HW))
+        np.testing.assert_array_equal(got[i], want)
 
 
 def test_cli_help_and_device_rule():
@@ -156,9 +243,28 @@ def test_cli_help_and_device_rule():
     args = build_parser().parse_args(["--images", "unused", "--weights", "unused.pth"])
     with pytest.raises(RuntimeError, match="cuda"):
         track(args, [(0, np.zeros((8, 8, 3), np.uint8))])
-    for flag in (["--bf16"], ["--assoc_weights", "head"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            track(build_parser().parse_args(["--images", "x", "--weights", "w", "--device", "cpu", *flag]), [])
+
+
+def test_cli_bf16_and_assoc_weights_on_cpu(tmp_path):
+    """``track_uav --bf16`` and ``--assoc_weights`` (a head saved in the
+    port's checkpoint format, and a path with none, which keeps the default
+    head) run on the CPU: one CSV row per frame, ids from 1."""
+    from apse_uav_torch.cli.track_uav import build_parser, track
+    from apse_uav_torch.dcnn.models.association import init_weights
+    from apse_uav_torch.train.checkpoint import save_state
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint
+
+    path = str(tmp_path / "w.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in detectron2_checkpoint(3, 50, 4).items()}}, path)
+    save_state(str(tmp_path), "head", {"params": init_weights(25600, 128, seed=2)})
+    frames = np.random.default_rng(4).integers(0, 255, (2, 48, 64, 3), np.uint8)
+    for flags in (["--bf16"], ["--assoc_weights", str(tmp_path / "head")],
+                  ["--assoc_weights", str(tmp_path / "none"), "--bf16"]):
+        args = build_parser().parse_args(["--images", "x", "--weights", path, "--depth", "50", "--device", "cpu",
+                                          "--log_file", str(tmp_path / "dcnn.csv"), "--batch", "2", "--confidence",
+                                          "0.0", *flags])
+        res = track(args, [(0, frames[0]), (1, frames[1])])
+        assert res["frames"] == 2 and res["rows"] == 2 and res["max_obj_id"] >= 1, flags
 
 
 def test_cli_loop_on_cpu_writes_csv(tmp_path):
