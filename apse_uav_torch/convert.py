@@ -169,22 +169,54 @@ def _flatten_tree(tree, prefix: str = "") -> dict:
     return out
 
 
+def _params_state_dict(tree: dict) -> dict[str, np.ndarray]:
+    """A JAX parameter tree (or a tree laid out like one) -> the port's
+    state dict, MaskRCNN or AssociationHead by its paths."""
+    flat = _flatten_tree(tree)
+    is_head = set(flat) <= {"fc/kernel", "fc/bias"}
+    return association_state_dict(flat) if is_head else mask_rcnn_state_dict(flat)
+
+
+def _child(tree: dict, i: int):
+    """A chain's i-th state (orbax restores tuple positions as string keys)."""
+    return tree[str(i)] if str(i) in tree else tree[i]
+
+
+def optimizer_state(opt_state: dict) -> dict:
+    """An optax state the JAX package saved -> the port's
+    :class:`~apse_uav_torch.train.optim.SGD` state.
+
+    ``build_finetune_optimizer``'s state (multi_transform -> masked
+    apply_if_finite -> chain(clip, decay, chain(trace, schedule))) gives the
+    momentum traces of the trainable parameters (the frozen ones are masked
+    out, empty), the schedule count and the finite-check counters; plain
+    ``optax.sgd``'s (chain(trace, scale)) gives the traces alone.  The traces
+    take the parameters' layouts and names."""
+    if "inner_states" not in opt_state:
+        return {"trace": _params_state_dict(_child(opt_state, 0)["trace"])}
+    finite = opt_state["inner_states"]["train"]["inner_state"]
+    sgd = _child(finite["inner_state"], 2)
+    return {"trace": _params_state_dict(_child(sgd, 0)["trace"]), "count": int(_child(sgd, 1)["count"]),
+            "notfinite_count": int(finite["notfinite_count"]), "last_finite": bool(finite["last_finite"]),
+            "total_notfinite": int(finite["total_notfinite"])}
+
+
 def checkpoint_state(state: dict) -> dict:
     """A training state the JAX package saved (``train.checkpoint.save_state``;
-    orbax restores it as nested numpy) -> the port's checkpoint state
+    orbax restores it as nested arrays) -> the port's checkpoint state
     (``apse_uav_torch.train.checkpoint``): ``params`` of a MaskRCNN through
     :func:`mask_rcnn_state_dict`, of an AssociationHead through
-    :func:`association_state_dict`; numbers as Python numbers; the optimizer
-    state (``opt_state``) dropped, as the port has no optimizer yet."""
+    :func:`association_state_dict`; ``opt_state`` through
+    :func:`optimizer_state`; numbers as Python numbers.  A state saved in
+    the middle of a JAX fine-tune resumes in the port on the same
+    trajectory."""
     out = {}
     for key, value in state.items():
-        if key == "opt_state":
-            continue
         if key == "params":
-            flat = _flatten_tree(value)
-            is_head = set(flat) <= {"fc/kernel", "fc/bias"}
-            value = association_state_dict(flat) if is_head else mask_rcnn_state_dict(flat)
-        elif isinstance(value, (np.ndarray, np.generic)) and np.ndim(value) == 0:
+            value = _params_state_dict(value)
+        elif key == "opt_state":
+            value = optimizer_state(value)
+        elif np.ndim(value) == 0 and hasattr(value, "dtype"):
             value = np.asarray(value).item()
         out[key] = value
     return out

@@ -20,11 +20,21 @@ the ids the reference assigns:
   ``erfinv`` is Giles' single-precision polynomial, the one XLA uses;
 * products followed by a sum round once, as XLA's CPU code fuses them;
 * ``lecun_normal``: that normal at (-2, 2), times
-  ``sqrt(1 / fan_in) / 0.87962566103423978``.
+  ``sqrt(1 / fan_in) / 0.87962566103423978``, fan_in = kh * kw * cin for a
+  convolution kernel;
+* ``normal(stddev)``: ``sqrt(2) * erfinv(u)`` for u uniform in
+  [nextafter(-1, 0), 1), times stddev;
+* ``split(key, n)``: key i is the block function of the counter (0, i)
+  (the partitionable layout, the same as ``fold_in(key, i)``).
 
 Every step runs in float32 as the reference does; the one difference is in
 ``erfinv``'s and ``log1p``'s last bits (``tests/test_torch_checkpoint.py``
 states the largest).
+
+The functions ending in ``_t`` compute the same numbers with torch on any
+device, in int64 arithmetic masked to 32 bits: the training losses draw
+their sampling priorities with them on the card (hundreds of thousands a
+step), and :func:`mask_rcnn_init` draws a whole model's initialisation.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import hashlib
 import math
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -95,6 +106,12 @@ def random_bits32(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     return (b0 ^ b1).reshape(shape)
 
 
+def split(key: np.ndarray, n: int = 2) -> np.ndarray:
+    """``jax.random.split(key, n)`` as (n, 2) uint32."""
+    o0, o1 = threefry2x32(key, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    return np.stack([o0, o1], axis=1)
+
+
 def uniform(key: np.ndarray, shape: tuple[int, ...], minval, maxval) -> np.ndarray:
     """``jax.random.uniform`` in float32."""
     lo, hi = np.float32(minval), np.float32(maxval)
@@ -139,9 +156,196 @@ def lecun_normal(key: np.ndarray, shape: tuple[int, int]) -> np.ndarray:
     return (truncated_normal(key, -2.0, 2.0, shape) * stddev).astype(np.float32)
 
 
+def normal(key: np.ndarray, shape: tuple[int, ...], stddev: float = 1.0) -> np.ndarray:
+    """``jax.random.normal`` (times ``stddev``, flax's ``initializers.normal``) in float32."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    out = np.float32(np.sqrt(2)) * erfinv32(uniform(key, shape, lo, 1.0))
+    return (out * np.float32(stddev)).astype(np.float32)
+
+
 def dense_init(seed: int, path: tuple[str, ...], in_dim: int, out_dim: int) -> tuple[np.ndarray, np.ndarray]:
     """(kernel (in_dim, out_dim), bias (out_dim,)) of a flax ``nn.Dense`` at the
     scope ``path`` of a module initialised with ``PRNGKey(seed)``: the kernel
     takes the scope's first ``params`` draw, the bias is zero."""
     key = fold_in_path(prng_key(seed), (*path, 1))
     return lecun_normal(key, (in_dim, out_dim)), np.zeros(out_dim, np.float32)
+
+
+# -- the same streams on a torch device --------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _rotl_t(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & _M32
+
+
+def threefry2x32_t(keys: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`threefry2x32` of each key of ``keys`` (K, 2) on the counter
+    words x0, x1 (N,), in int64 holding 32-bit values -> two (K, N) words."""
+    k0, k1 = keys[:, :1], keys[:, 1:]
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    a, b = (x0 + k0) & _M32, (x1 + k1) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & _M32
+            b = _rotl_t(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return a, b
+
+
+def random_bits32_t(keys: np.ndarray, n: int, device) -> torch.Tensor:
+    """:func:`random_bits32` of each key of ``keys`` (K, 2) uint32 over n
+    elements, on ``device``: (K, n) int64 holding the 32-bit words."""
+    k = torch.as_tensor(np.asarray(keys, np.int64).reshape(-1, 2), device=device)
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32_t(k, lo >> 32, lo & _M32)
+    return b0 ^ b1
+
+
+def _fma_t(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once (see :func:`_fma`)."""
+    b = b.double() if torch.is_tensor(b) else float(b)
+    c = c.double() if torch.is_tensor(c) else float(c)
+    return (a.double() * b + c).float()
+
+
+def uniform_t(keys: np.ndarray, n: int, device, minval=0.0, maxval=1.0) -> torch.Tensor:
+    """:func:`uniform` of each key of ``keys`` (K, 2) over n elements: (K, n) float32 on ``device``."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    bits = (random_bits32_t(keys, n, device) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp(_fma_t(floats, hi - lo, lo), min=float(lo))
+
+
+def erfinv32_t(x: torch.Tensor) -> torch.Tensor:
+    """:func:`erfinv32` in torch."""
+    w = (-torch.log1p((-x * x).double())).float()
+    lt = w < 5.0
+    # The square root in float64, rounded once to float32 (torch's float32
+    # sqrt on the CPU is not always correctly rounded).
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).float()
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma_t(p, w, torch.where(lt, np.float32(a).item(), np.float32(b).item()).float())
+    out = p * x
+    return torch.where(x.abs() == 1, x * float(np.finfo(np.float32).max), out)
+
+
+def normal_t(key: np.ndarray, n: int, device, stddev: float = 1.0) -> torch.Tensor:
+    """flax's ``initializers.normal(stddev)`` of one key over n elements as
+    XLA computes it inside ``jax.jit`` (the reference's ``model.init``): the
+    two constants folded into one factor, ``erfinv(u) * float32(sqrt(2) *
+    stddev)``.  (n,) float32 on ``device``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform_t(np.asarray(key)[None], n, device, lo, 1.0)[0]
+    return erfinv32_t(u) * float(np.float32(np.sqrt(2)) * np.float32(stddev))
+
+
+def truncated_normal_t(key: np.ndarray, lower: float, upper: float, n: int, device) -> torch.Tensor:
+    """:func:`truncated_normal` of one key over n elements: (n,) float32 on ``device``."""
+    sqrt2 = np.float32(np.sqrt(2))
+    lo, hi = np.float32(lower), np.float32(upper)
+    a = np.float32(math.erf(float(lo / sqrt2)))
+    b = np.float32(math.erf(float(hi / sqrt2)))
+    out = float(sqrt2) * erfinv32_t(uniform_t(np.asarray(key)[None], n, device, a, b)[0])
+    return out.clamp(float(np.nextafter(lo, np.float32(np.inf))), float(np.nextafter(hi, np.float32(-np.inf))))
+
+
+def lecun_normal_t(key: np.ndarray, shape: tuple[int, ...], device) -> torch.Tensor:
+    """flax's default kernel init of a Dense (fan_in, fan_out) or a
+    convolution (kh, kw, cin, cout) kernel, in that (flax) layout."""
+    fan_in = math.prod(shape[:-1])
+    stddev = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(0.87962566103423978)
+    return (truncated_normal_t(key, -2.0, 2.0, math.prod(shape), device) * float(stddev)).reshape(shape)
+
+
+def _flax_params(cfg) -> list[tuple[str, tuple[int, ...], str]]:
+    """The JAX MaskRCNN's parameters of ``cfg`` in the order of their
+    scopes: ('/'-joined flax path, shape in flax layout, initialiser), the
+    initialiser ``lecun``, ``normal:<stddev>``, ``zeros`` or ``ones``."""
+    from apse_uav_torch.dcnn.models.resnet import STAGE_BLOCKS
+
+    out = []
+
+    def conv(path, k, cin, cout, bias=True, init="lecun"):
+        out.append((f"{path}/kernel", (k, k, cin, cout), init))
+        if bias:
+            out.append((f"{path}/bias", (cout,), "zeros"))
+
+    def bn(path, ch):
+        out.extend([(f"{path}/scale", (ch,), "ones"), (f"{path}/bias", (ch,), "zeros"),
+                    (f"{path}/mean", (ch,), "zeros"), (f"{path}/var", (ch,), "ones")])
+
+    rn = "backbone/resnet"
+    conv(f"{rn}/stem_conv", 7, 3, 64, bias=False)
+    bn(f"{rn}/stem_bn", 64)
+    in_ch = 64
+    for stage, n_blocks in enumerate(STAGE_BLOCKS[cfg.depth]):
+        out_ch, mid = 256 * 2**stage, 64 * 2**stage
+        for b in range(n_blocks):
+            p = f"{rn}/res{stage + 2}_{b}"
+            cin = in_ch if b == 0 else out_ch
+            for i, (k, ci, co) in enumerate(((1, cin, mid), (3, mid, mid), (1, mid, out_ch)), start=1):
+                conv(f"{p}/conv{i}", k, ci, co, bias=False)
+                bn(f"{p}/bn{i}", co)
+            if b == 0:
+                conv(f"{p}/shortcut", 1, cin, out_ch, bias=False)
+                bn(f"{p}/shortcut_bn", out_ch)
+        in_ch = out_ch
+    ch = cfg.fpn_channels
+    for i, c in enumerate((256, 512, 1024, 2048)):
+        conv(f"backbone/fpn/lateral{i + 2}", 1, c, ch)
+        conv(f"backbone/fpn/output{i + 2}", 3, ch, ch)
+    a = len(cfg.anchors.aspect_ratios)
+    conv("rpn_head/conv", 3, ch, ch, init="normal:0.01")
+    conv("rpn_head/objectness", 1, ch, a, init="normal:0.01")
+    conv("rpn_head/deltas", 1, ch, 4 * a, init="normal:0.01")
+    roi = cfg.roi
+    dims = [ch * roi.box_pooler_resolution**2] + [roi.box_fc_dim] * roi.num_box_fc
+    for i in range(roi.num_box_fc):
+        out += [(f"box_head/fc{i + 1}/kernel", (dims[i], dims[i + 1]), "lecun"),
+                (f"box_head/fc{i + 1}/bias", (dims[i + 1],), "zeros")]
+    out += [("box_head/cls_score/kernel", (roi.box_fc_dim, roi.num_classes + 1), "normal:0.01"),
+            ("box_head/cls_score/bias", (roi.num_classes + 1,), "zeros"),
+            ("box_head/bbox_pred/kernel", (roi.box_fc_dim, 4 * roi.num_classes), "normal:0.001"),
+            ("box_head/bbox_pred/bias", (4 * roi.num_classes,), "zeros")]
+    if cfg.mask_on:
+        for i in range(roi.num_mask_conv):
+            conv(f"mask_head/mask_fcn{i + 1}", 3, ch if i == 0 else roi.mask_conv_dim, roi.mask_conv_dim)
+        conv("mask_head/deconv", 2, roi.mask_conv_dim, roi.mask_conv_dim)
+        conv("mask_head/predictor", 1, roi.mask_conv_dim, roi.num_classes, init="normal:0.001")
+    return out
+
+
+def mask_rcnn_init(cfg, seed: int = 0, device="cpu", only=None) -> dict[str, np.ndarray]:
+    """The JAX MaskRCNN of ``cfg`` initialised with ``PRNGKey(seed)``
+    (``model.init`` under ``jax.jit``, as the reference's loop and CLIs
+    call it), as the port's state dict of float32 numpy arrays
+    (detectron2 names, through ``convert.mask_rcnn_state_dict``), drawn on
+    ``device``.  Each
+    parameter takes its scope's draw: the kernel the first, the bias the
+    second (frozen BN: scale, bias, mean, var the first to the fourth).
+    ``only``: the state-dict names to compute (the others are left out)."""
+    from apse_uav_torch import convert
+
+    root = prng_key(seed)
+    counters: dict[str, int] = {}
+    flat = {}
+    for path, shape, init in _flax_params(cfg):
+        scope = path.rsplit("/", 1)[0]
+        counters[scope] = counters.get(scope, 0) + 1
+        if only is not None and convert._mask_rcnn_key(path)[0] not in only:
+            continue
+        if init == "zeros":
+            flat[path] = torch.zeros(shape, device=device)
+        elif init == "ones":
+            flat[path] = torch.ones(shape, device=device)
+        else:
+            key = fold_in_path(root, (*scope.split("/"), counters[scope]))
+            if init == "lecun":
+                flat[path] = lecun_normal_t(key, shape, device)
+            else:
+                flat[path] = normal_t(key, math.prod(shape), device, float(init.split(":")[1])).reshape(shape)
+    return convert.mask_rcnn_state_dict({k: v.cpu().numpy() for k, v in flat.items()})

@@ -1,4 +1,4 @@
-"""Mask R-CNN (GeneralizedRCNN with TrackRCNN semantics), inference.
+"""Mask R-CNN (GeneralizedRCNN with TrackRCNN semantics): inference and training losses.
 
 Counterpart of the JAX reference's ``dcnn/models/mask_rcnn.py``: batched
 NHWC images, fixed-capacity proposals and detections with validity masks, and
@@ -16,18 +16,25 @@ the head dtype.  Nothing is cast at the end: bf16 outputs meet float32
 anchors and boxes under the reference's promotion rules, so in bfloat16 the
 proposal scores and the masks come out bfloat16, the boxes float32.  The C4
 architecture raises, naming ``ROADMAP.md``.
+
+``losses`` is the reference's training mode: every head output that a loss
+reads is cast to float32 first, and each loss is the mean over the images of
+the per-image losses.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
+from apse_uav_torch.dcnn import flax_init
 from apse_uav_torch.dcnn.config import ModelConfig
 from apse_uav_torch.dcnn.models.resnet import ResNetFPN
-from apse_uav_torch.dcnn.models.roi_heads import (POOL_LEVELS, BoxHead, BoxPredictor, MaskHead, box_inference,
-                                                 fpn_roi_align)
-from apse_uav_torch.dcnn.models.rpn import RPNHead, select_proposals
+from apse_uav_torch.dcnn.models.roi_heads import (POOL_LEVELS, BoxHead, BoxPredictor, MaskHead, box_head_losses,
+                                                 box_inference, crop_resize_masks, fpn_roi_align,
+                                                 mask_head_loss, match_proposals_to_gt)
+from apse_uav_torch.dcnn.models.rpn import RPNHead, rpn_losses, select_proposals
 
 RPN_LEVELS = ("p2", "p3", "p4", "p5", "p6")
 
@@ -93,6 +100,98 @@ class MaskRCNN(nn.Module):
         logits, deltas = self.proposal_generator["rpn_head"]({n: feats[n] for n in RPN_LEVELS})
         level_shapes = {n: tuple(feats[n].shape[1:3]) for n in RPN_LEVELS}
         return select_proposals(logits, deltas, level_shapes, image_hw, self.cfg.anchors, self.cfg.rpn)
+
+    @torch.no_grad()
+    def training_proposals(self, images: torch.Tensor, features: dict | None = None):
+        """The proposals :meth:`losses` samples from (the ``*_topk_train``
+        budgets), from the images or their ``features``: (boxes (B, P, 4), valid (B, P))."""
+        feats = self.features(images) if features is None else features
+        logits, deltas = self.proposal_generator["rpn_head"]({n: feats[n] for n in RPN_LEVELS})
+        level_shapes = {n: tuple(feats[n].shape[1:3]) for n in RPN_LEVELS}
+        boxes, _, valid = select_proposals({k: v.float() for k, v in logits.items()},
+                                           {k: v.float() for k, v in deltas.items()}, level_shapes,
+                                           tuple(images.shape[1:3]), self.cfg.anchors, self.cfg.rpn, training=True)
+        return boxes, valid
+
+    def losses(self, images: torch.Tensor, gt: dict[str, torch.Tensor], key: np.ndarray, gt_proposals: bool = False,
+               freeze_backbone: bool = False, mark=None, proposals=None,
+               features: dict | None = None) -> dict[str, torch.Tensor]:
+        """The training losses of a batch (the reference's ``losses`` mode).
+
+        images (B, H, W, 3); gt: boxes (B, G, 4), classes (B, G), valid
+        (B, G) and, with masks, masks (B, G, Hm, Wm) (full-image masks at
+        image resolution or a multiple of it); key (2,) uint32, split into
+        3B keys: the first B sample each image's anchors, the next B its
+        proposals.  ``gt_proposals`` feeds the GT boxes to the ROI heads in
+        place of the RPN's proposals (no RPN losses).  ``freeze_backbone``
+        computes the features under ``no_grad``: the reference's
+        ``stop_gradient``, with no convolution or ROIAlign backward.  Returns
+        {name: scalar}: loss_rpn_loc, loss_rpn_cls (without
+        ``gt_proposals``), loss_cls, loss_box_reg and, with masks, loss_mask.
+        ``mark(stage)``, if given, is called as each stage ends ("features",
+        "rpn", "roi"), e.g. to record a CUDA event.  ``proposals`` (boxes,
+        valid), if given, replace the selected proposals (the RPN losses
+        still run): top-k and NMS are discontinuous in the logits, so two
+        devices compare a step on the same proposals
+        (:meth:`training_proposals`).  ``features`` (the backbone's maps,
+        without autograd) likewise replace the backbone's forward under
+        ``freeze_backbone``: ROIAlign gathers from a bfloat16 copy of the
+        maps, where a last-bit difference of a float32 value can move it by
+        a whole bfloat16 step.
+        """
+        cfg = self.cfg
+        mark = mark or (lambda stage: None)
+        if features is not None:
+            if not freeze_backbone:
+                raise ValueError("features are given: the backbone takes no gradient (freeze_backbone=True)")
+            feats = features
+        elif freeze_backbone:
+            with torch.no_grad():
+                feats = self.features(images)
+        else:
+            feats = self.features(images)
+        mark("features")
+        image_hw = tuple(images.shape[1:3])
+        b = images.shape[0]
+        keys = flax_init.split(np.asarray(key, np.uint32), 3 * b)
+        if gt_proposals:
+            losses = {}
+            boxes, valid = gt["boxes"], gt["valid"]
+        else:
+            logits, deltas = self.proposal_generator["rpn_head"]({n: feats[n] for n in RPN_LEVELS})
+            logits = {k: v.float() for k, v in logits.items()}
+            deltas = {k: v.float() for k, v in deltas.items()}
+            level_shapes = {n: tuple(feats[n].shape[1:3]) for n in RPN_LEVELS}
+            losses = rpn_losses(keys[:b], logits, deltas, level_shapes, gt["boxes"], gt["valid"], cfg.anchors,
+                                cfg.rpn)
+            if proposals is not None:
+                boxes, valid = proposals
+            else:
+                with torch.no_grad():
+                    boxes, _, valid = select_proposals({k: v.detach() for k, v in logits.items()},
+                                                       {k: v.detach() for k, v in deltas.items()}, level_shapes,
+                                                       image_hw, cfg.anchors, cfg.rpn, training=True)
+        mark("rpn")
+        roi = cfg.roi
+        sample = match_proposals_to_gt(keys[b:2 * b], boxes, valid, gt["boxes"], gt["classes"], gt["valid"], roi)
+        heads = self.roi_heads
+        pool_feats = {n: feats[n] for n in POOL_LEVELS}
+        s = sample["boxes"].shape[1]
+        pooled = fpn_roi_align(pool_feats, sample["boxes"], roi.box_pooler_resolution, roi.pooler_sampling_ratio)
+        cls_logits, box_deltas = heads.box_predictor(heads.box_head(pooled.reshape(b * s, -1)))
+        losses.update(box_head_losses(cls_logits.float().reshape(b, s, -1),
+                                      box_deltas.float().reshape(b, s, roi.num_classes, 4), sample, gt["boxes"], roi))
+        if cfg.mask_on and "masks" in gt:
+            r2 = 2 * roi.mask_pooler_resolution
+            mask_pooled = fpn_roi_align(pool_feats, sample["boxes"], roi.mask_pooler_resolution,
+                                        roi.pooler_sampling_ratio)
+            mask_logits = heads.mask_head(mask_pooled.reshape(b * s, *mask_pooled.shape[2:])).float()
+            target = crop_resize_masks(gt["masks"] > 0.5, sample["matched_gt"], sample["boxes"], image_hw, r2)
+            losses["loss_mask"] = mask_head_loss(mask_logits.reshape(b, s, *mask_logits.shape[1:]), sample, target,
+                                                 roi)
+        losses = {k: v.mean() for k, v in losses.items()}
+        mark("roi")
+        return losses
 
     def detect(self, feats: dict[str, torch.Tensor], boxes: torch.Tensor, valid: torch.Tensor,
                image_hw: tuple[int, int]) -> dict[str, torch.Tensor]:

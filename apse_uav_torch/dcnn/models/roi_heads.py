@@ -1,4 +1,4 @@
-"""StandardROIHeads for inference: FPN pooling, box head, mask head.
+"""StandardROIHeads: FPN pooling, box head, mask head, matching and losses.
 
 Counterpart of the JAX reference's ``dcnn/models/roi_heads.py``: detectron2's
 StandardROIHeads + FastRCNNConvFCHead + MaskRCNNConvUpsampleHead with
@@ -6,8 +6,10 @@ fixed-capacity proposals and detections (validity masks) and the exact
 fixed-point NMS, batched over images.  The reference's ``BoxHead`` is here
 the FC trunk :class:`BoxHead` plus :class:`BoxPredictor`, named as
 detectron2 names them (``roi_heads.box_head.fc1``,
-``roi_heads.box_predictor.cls_score``).  Matching, losses and
-``paste_masks`` wait for the training slice.
+``roi_heads.box_predictor.cls_score``).  The training functions
+(``match_proposals_to_gt``, the box and mask losses, the GT mask targets)
+are the reference's, batched over images: each returns one loss per image.
+``paste_masks`` is not ported (the tracker pastes masks its own way).
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from apse_uav_torch.dcnn.config import ROIConfig
+from apse_uav_torch.dcnn.losses import max0
 from apse_uav_torch.dcnn.models.resnet import conv
-from apse_uav_torch.dcnn.ops import apply_deltas, clip_boxes
+from apse_uav_torch.dcnn.models.rpn import smooth_l1, subsample_labels, take_rows
+from apse_uav_torch.dcnn.ops import apply_deltas, box_iou, clip_boxes, get_deltas
 from apse_uav_torch.dcnn.ops.nms import batched_nms, descending_order
 from apse_uav_torch.dcnn.ops.roi_align import sample_grid
 
@@ -197,3 +201,88 @@ def box_inference(scores_logits: torch.Tensor, deltas: torch.Tensor, proposals: 
         "classes": torch.gather(cand_cls, 1, fidx),
         "valid": ok,
     }
+
+
+def match_proposals_to_gt(keys: np.ndarray, proposals: torch.Tensor, proposal_valid: torch.Tensor,
+                          gt_boxes: torch.Tensor, gt_classes: torch.Tensor, gt_valid: torch.Tensor,
+                          cfg: ROIConfig) -> dict[str, torch.Tensor]:
+    """label_and_sample_proposals for a batch (training).
+
+    The GT boxes are appended to the proposals (detectron2), matched at
+    ``iou_thresh``, and a balanced subsample of ``batch_size_per_image`` is
+    taken with the keys (B, 2) uint32, one per image.  The selected rows come
+    first, in their order (a stable sort), so each image gives S =
+    min(batch_size_per_image, P + G) rows: boxes (B, S, 4), matched_gt,
+    fg, sampled and gt_class (the background class K where not fg)."""
+    all_boxes = torch.cat([proposals, gt_boxes], dim=1)
+    all_valid = torch.cat([proposal_valid, gt_valid], dim=1)
+    iou = torch.where(gt_valid[..., None], box_iou(gt_boxes, all_boxes), -1.0)
+    matched_iou = iou.amax(dim=1)
+    matched_idx = iou.argmax(dim=1)
+    fg = (matched_iou >= cfg.iou_thresh) & all_valid
+    bg = (matched_iou < cfg.iou_thresh) & all_valid
+    labels = torch.where(fg, 1, torch.where(bg, 0, -1))
+    sel = subsample_labels(keys, labels, cfg.batch_size_per_image, cfg.positive_fraction)
+    take = torch.argsort((~sel).to(torch.uint8), dim=1, stable=True)[:, :cfg.batch_size_per_image]
+    is_real = torch.gather(sel, 1, take)
+    matched = torch.gather(matched_idx, 1, take)
+    fg_take = torch.gather(fg, 1, take) & is_real
+    return {
+        "boxes": take_rows(all_boxes, take),
+        "matched_gt": matched,
+        "fg": fg_take,
+        "sampled": is_real,
+        "gt_class": torch.where(fg_take, torch.gather(gt_classes.to(torch.int64), 1, matched), cfg.num_classes),
+    }
+
+
+def box_head_losses(scores_logits: torch.Tensor, deltas: torch.Tensor, sample: dict[str, torch.Tensor],
+                    gt_boxes: torch.Tensor, cfg: ROIConfig) -> dict[str, torch.Tensor]:
+    """Softmax cross-entropy over the sampled rows and class-specific smooth
+    L1 on the foreground ones, both over the sampled count: {name: (B,)}.
+    scores_logits (B, S, K + 1), deltas (B, S, K, 4)."""
+    valid = sample["sampled"]
+    count = valid.sum(dim=1).clamp(min=1)
+    log_probs = torch.log_softmax(scores_logits, dim=-1)
+    ce = -torch.gather(log_probs, 2, sample["gt_class"][..., None])[..., 0]
+    loss_cls = torch.where(valid, ce, 0.0).sum(dim=1) / count
+    fg_class = sample["gt_class"].clamp(0, cfg.num_classes - 1)
+    pred = torch.gather(deltas, 2, fg_class[..., None, None].expand(*fg_class.shape, 1, 4))[:, :, 0]
+    target = get_deltas(sample["boxes"], take_rows(gt_boxes, sample["matched_gt"]), cfg.bbox_reg_weights)
+    l1 = smooth_l1(pred, target, cfg.smooth_l1_beta).sum(dim=-1)
+    loss_box = torch.where(sample["fg"], l1, 0.0).sum(dim=1) / count
+    return {"loss_cls": loss_cls, "loss_box_reg": loss_box}
+
+
+def mask_head_loss(mask_logits: torch.Tensor, sample: dict[str, torch.Tensor], gt_masks: torch.Tensor,
+                   cfg: ROIConfig) -> torch.Tensor:
+    """Per-pixel BCE of each fg row's matched class channel, over the fg
+    count: (B,).  mask_logits (B, S, K, 2R, 2R), gt_masks (B, S, 2R, 2R)."""
+    fg = sample["fg"]
+    cls = sample["gt_class"].clamp(0, cfg.num_classes - 1)
+    r2 = mask_logits.shape[-2:]
+    logits = torch.gather(mask_logits, 2, cls[..., None, None, None].expand(*cls.shape, 1, *r2))[:, :, 0]
+    labels = gt_masks.to(logits.dtype)
+    bce = (max0(logits) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))).mean(dim=(-2, -1))
+    return torch.where(fg, bce, 0.0).sum(dim=1) / fg.sum(dim=1).clamp(min=1)
+
+
+def crop_resize_masks(masks: torch.Tensor, matched: torch.Tensor, boxes: torch.Tensor, image_hw: tuple[int, int],
+                      out_size: int) -> torch.Tensor:
+    """Each sampled row's GT mask cropped to its box and resampled (nearest
+    cell) to out_size x out_size: the reference's ``_gather_crop_resize_masks``.
+
+    masks (B, G, Hm, Wm) bool at image resolution or a multiple of it,
+    matched (B, S) gt index, boxes (B, S, 4) image coordinates ->
+    (B, S, out, out) bool.  Only the sampled cells are read: no per-row copy
+    of a full mask."""
+    h, w = masks.shape[-2:]
+    sy, sx = h / image_hw[0], w / image_hw[1]
+    steps = (torch.arange(out_size, device=boxes.device) + 0.5) / out_size
+    x1, y1, x2, y2 = boxes[..., 0] * sx, boxes[..., 1] * sy, boxes[..., 2] * sx, boxes[..., 3] * sy
+    xs = x1[..., None] + steps * (x2 - x1).clamp(min=1e-4)[..., None]
+    ys = y1[..., None] + steps * (y2 - y1).clamp(min=1e-4)[..., None]
+    xi = xs.to(torch.int64).clamp(0, w - 1)
+    yi = ys.to(torch.int64).clamp(0, h - 1)
+    bi = torch.arange(masks.shape[0], device=masks.device)[:, None, None, None]
+    return masks[bi, matched[..., None, None], yi[..., :, None], xi[..., None, :]]

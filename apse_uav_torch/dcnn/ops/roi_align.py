@@ -1,7 +1,8 @@
-"""ROIAlign on channels-last feature maps, as bilinear row gathers.
+"""ROIAlign and ROIPool, as row gathers on channels-last feature maps.
 
 Counterpart of the JAX reference's ``dcnn/ops/roi_align.py``
-(``roi_align_hwc``; torchvision's ``roi_align`` semantics):
+(``roi_align_hwc``, the channels-first ``roi_align`` over it, and
+``roi_pool``; torchvision's ``roi_align`` semantics):
 
 * each output bin averages ``sampling_ratio**2`` bilinear samples on a
   regular grid inside the bin;
@@ -74,3 +75,50 @@ def roi_align_hwc(feat_hwc: torch.Tensor, boxes: torch.Tensor, output_size, spat
     vals = bilinear_gather_hwc(feat_hwc, yy, xx)  # (N*S, C)
     vals = vals.reshape(n, oh, s, ow, s, c).mean(dim=(2, 4))  # (N, oh, ow, C)
     return vals.permute(0, 3, 1, 2)
+
+
+def roi_align(feat: torch.Tensor, boxes: torch.Tensor, output_size, spatial_scale: float = 1.0,
+              sampling_ratio: int = 2, aligned: bool = False) -> torch.Tensor:
+    """feat (C, H, W), boxes (N, 4) -> (N, C, oh, ow): :func:`roi_align_hwc`
+    on the channels-last view (torchvision's layout)."""
+    return roi_align_hwc(feat.permute(1, 2, 0), boxes, output_size, spatial_scale, sampling_ratio, aligned)
+
+
+def roi_pool(feat: torch.Tensor, boxes: torch.Tensor, output_size, spatial_scale: float = 1.0) -> torch.Tensor:
+    """Quantised max ROI pooling, feat (C, H, W), boxes (N, 4) -> (N, C, oh, ow).
+
+    torchvision's bins (box corners rounded, a box at least 1 px, bin edges
+    floored / ceiled) snapped with the reference's 1e-4 epsilon, each bin
+    the maximum over the reference's fixed lattice of K x K taps from its
+    corner (K = min(side, 16)) that fall inside it; an empty bin is 0.
+    Where the lattice is smaller than a bin, the result is the reference's,
+    not torchvision's."""
+    oh, ow = (output_size, output_size) if isinstance(output_size, int) else output_size
+    c, h, w = feat.shape
+    kh, kw = min(h, 16), min(w, 16)
+    dev = feat.device
+    hwc = feat.permute(1, 2, 0)
+    corners = torch.round(boxes * spatial_scale)
+    ii = torch.arange(oh, dtype=torch.float32, device=dev)
+    jj = torch.arange(ow, dtype=torch.float32, device=dev)
+    eps = 1e-4
+    out = []
+    for x1, y1, x2, y2 in corners:
+        bin_h = torch.clamp(y2 - y1 + 1, min=1.0) / oh
+        bin_w = torch.clamp(x2 - x1 + 1, min=1.0) / ow
+        hstart = (torch.floor(ii * bin_h + eps) + y1).clamp(0, h)
+        hend = (torch.ceil((ii + 1) * bin_h - eps) + y1).clamp(0, h)
+        wstart = (torch.floor(jj * bin_w + eps) + x1).clamp(0, w)
+        wend = (torch.ceil((jj + 1) * bin_w - eps) + x1).clamp(0, w)
+        ys = hstart[:, None] + torch.arange(kh, device=dev)  # (oh, kh)
+        xs = wstart[:, None] + torch.arange(kw, device=dev)  # (ow, kw)
+        inside = (ys < hend[:, None])[:, :, None, None] & (xs < wend[:, None])[None, None]
+        yi = ys.clamp(0, h - 1).to(torch.int64)
+        xi = xs.clamp(0, w - 1).to(torch.int64)
+        taps = hwc[yi[:, :, None, None], xi[None, None]]  # (oh, kh, ow, kw, C)
+        val = torch.where(inside[..., None], taps, float("-inf")).amax(dim=(1, 3))  # (oh, ow, C)
+        empty = (hend <= hstart)[:, None] | (wend <= wstart)[None, :]
+        out.append(torch.where(empty[..., None], 0.0, val).permute(2, 0, 1))
+    if not out:
+        return feat.new_zeros((0, c, oh, ow))
+    return torch.stack(out)

@@ -9,13 +9,16 @@ orbax directory of the same name).  The state is a dict:
 * ``params``: the model's state dict (names -> tensors; the port's MaskRCNN
   is named as detectron2 names it, its AssociationHead ``fc.weight`` /
   ``fc.bias``);
-* ``iteration``, ``best_ap``, ``best_ar``;
+* ``opt_state``: the optimizer's state
+  (:meth:`apse_uav_torch.train.optim.SGD.state_dict`: the momentum traces,
+  keyed like ``params``, the schedule count and the finite-check counters);
+* ``iteration`` (``epoch`` for the association head), ``best_ap``, ``best_ar``;
 * optionally ``results``: the text of the run's ``results.txt``.
 
 ``apse_uav_torch.convert.checkpoint_state`` turns a state the reference
-saved (orbax, restored as nested numpy) into this one.  The optimizer state
-(``opt_state``) waits for the port's training slice and is not kept.
-Files are read with ``weights_only=True``: tensors, numbers and strings only.
+saved (orbax, restored as nested arrays), its ``opt_state`` included, into
+this one.  Files are read with ``weights_only=True``: tensors, numbers,
+booleans and strings only.
 """
 
 from __future__ import annotations
@@ -32,13 +35,16 @@ def _path(directory: str, name: str) -> str:
 
 
 def _tensors(x):
-    """numpy arrays (and numpy scalars) in a nested state -> tensors / Python numbers."""
+    """numpy arrays (and numpy scalars) in a nested state -> tensors / Python
+    numbers; tensors detached and moved to the CPU."""
     if isinstance(x, dict):
         return {k: _tensors(v) for k, v in x.items()}
     if isinstance(x, np.ndarray):
         return torch.from_numpy(np.array(x))
     if isinstance(x, np.generic):
         return x.item()
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
     return x
 
 

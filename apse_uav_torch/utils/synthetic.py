@@ -262,3 +262,184 @@ def detectron2_checkpoint(seed: int, depth: int, num_classes: int, mask_on: bool
         out[f"{mh}.predictor.weight"] = centred((num_classes, fpn_channels), 1 / np.sqrt(fpn_channels))[..., None, None]
         out[f"{mh}.predictor.bias"] = np.full(num_classes, MASK_BIAS, np.float32)
     return out
+
+
+# -- tracking sequences for association-head training ---------------------------
+
+
+def tracking_sequence(n_frames: int, hw: tuple[int, int], n_objects: int, seed: int = 0):
+    """Seeded textured objects moving over textured asphalt with fixed ids.
+
+    Each object keeps its own horizontal lane (so masks never overlap), size
+    and stripe texture, and moves at a constant velocity; colours come from
+    two families shared across ids, and each frame changes every object's
+    brightness and noise, so that identities are not separable at the start
+    of training.  Returns
+    (frames (T, H, W, 3) uint8 RGB, objects: per frame a list of
+    (track_id, class_id (1 car / 2 pedestrian), mask (H, W) uint8 0/1,
+    box [x, y, w, h])).
+    """
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    lane = h // n_objects
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (ASPHALT + 10 * np.sin(xx / 9.0) * np.cos(yy / 7.0))[..., None] + rng.normal(0, 4, (h, w, 1))
+    specs = []
+    for k in range(n_objects):
+        oh = int(rng.integers(lane // 2, max(lane - 4, lane // 2 + 1)))
+        ow = int(rng.integers(w // 12, w // 5))
+        specs.append({"id": k + 1, "class": 1 + k % 2, "y": k * lane + (lane - oh) // 2, "h": oh, "w": ow,
+                      "x0": float(rng.uniform(0, w - ow)), "vx": float(rng.uniform(-0.02, 0.02) * w),
+                      "colour": np.array([[180.0, 90.0, 70.0], [70.0, 110.0, 190.0]])[k % 2],
+                      "period": float(rng.uniform(3, 9))})
+    frames, objects = [], []
+    for t in range(n_frames):
+        img = np.repeat(base, 3, axis=2) + rng.normal(0, 3, (h, w, 3))
+        objs = []
+        for s in specs:
+            x = int(np.clip(s["x0"] + s["vx"] * t, 0, w - s["w"]))
+            y = s["y"]
+            stripes = 0.75 + 0.25 * np.sin(np.arange(s["w"]) / s["period"])[None, :, None]
+            img[y:y + s["h"], x:x + s["w"]] = (s["colour"] * stripes * rng.uniform(0.7, 1.3)
+                                               + rng.normal(0, 20, (s["h"], s["w"], 3)))
+            mask = np.zeros((h, w), np.uint8)
+            mask[y:y + s["h"], x:x + s["w"]] = 1
+            objs.append((s["id"], s["class"], mask, [x, y, s["w"], s["h"]]))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+        objects.append(objs)
+    return np.stack(frames), objects
+
+
+def write_mots_sequence(instances_dir: str, images_dir: str, seq: str, frames: np.ndarray, objects) -> None:
+    """KITTI-MOTS layout: ``images_dir/seq/%06d.png`` and the RLE instances
+    file ``instances_dir/seq.txt`` (frame, id = class * 1000 + track, class,
+    h, w, RLE); needs PIL."""
+    import os
+
+    from PIL import Image
+
+    from apse_uav_torch.evaluation import rle
+
+    os.makedirs(os.path.join(images_dir, seq), exist_ok=True)
+    os.makedirs(instances_dir, exist_ok=True)
+    with open(os.path.join(instances_dir, seq + ".txt"), "w") as f:
+        for t, (frame, objs) in enumerate(zip(frames, objects)):
+            Image.fromarray(frame).save(os.path.join(images_dir, seq, f"{t:06d}.png"))
+            for track_id, class_id, mask, _ in objs:
+                r = rle.encode(mask)
+                f.write(f"{t} {class_id * 1000 + track_id} {class_id} {r['size'][0]} {r['size'][1]} "
+                        f"{r['counts'].decode()}\n")
+
+
+def write_mot_sequence(seq_dir: str, frames: np.ndarray, objects) -> None:
+    """MOT17 layout: ``img1/%06d.jpg`` (frames from 1), ``gt/gt.txt`` rows
+    ``frame,id,x,y,w,h,1,class,1`` and ``seqinfo.ini``; needs PIL."""
+    import os
+
+    from PIL import Image
+
+    os.makedirs(os.path.join(seq_dir, "img1"), exist_ok=True)
+    os.makedirs(os.path.join(seq_dir, "gt"), exist_ok=True)
+    rows = []
+    for t, (frame, objs) in enumerate(zip(frames, objects), start=1):
+        Image.fromarray(frame).save(os.path.join(seq_dir, "img1", f"{t:06d}.jpg"), quality=95)
+        rows += [f"{t},{track_id},{x},{y},{w},{h},1,{class_id},1" for track_id, class_id, _, (x, y, w, h) in objs]
+    with open(os.path.join(seq_dir, "gt", "gt.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    h, w = frames.shape[1:3]
+    with open(os.path.join(seq_dir, "seqinfo.ini"), "w") as f:
+        f.write(f"[Sequence]\nname={os.path.basename(seq_dir)}\nimDir=img1\nframeRate=10\nseqLength={len(frames)}\n"
+                f"imWidth={w}\nimHeight={h}\nimExt=.jpg\n")
+
+
+# -- the learning regression's scenes ------------------------------------------
+
+
+def learning_config():
+    """The reference's learning-regression model (its
+    ``tests/test_learning_regression.py``): Mask R-CNN R50-FPN, 2 classes, no
+    mask head, unit-scale input normalisation (mean 128, std 64: a random
+    frozen backbone keeps the input's scale), RPN 128 -> 64 proposals, 64
+    anchors and 32 ROIs sampled an image, 16 detections above 0.3."""
+    from apse_uav_torch.dcnn.config import mask_rcnn_r50_fpn
+
+    cfg = mask_rcnn_r50_fpn(num_classes=2)
+    return dataclasses.replace(
+        cfg, input=dataclasses.replace(cfg.input, pixel_mean=(128.0, 128.0, 128.0), pixel_std=(64.0, 64.0, 64.0)),
+        mask_on=False,
+        rpn=dataclasses.replace(cfg.rpn, pre_nms_topk_test=128, post_nms_topk_test=64, pre_nms_topk_train=128,
+                                post_nms_topk_train=64, batch_size_per_image=64),
+        roi=dataclasses.replace(cfg.roi, num_classes=2, detections_per_image=16, batch_size_per_image=32,
+                                score_thresh_test=0.3))
+
+
+def learning_scenes(b: int = 2, hw: tuple[int, int] = (96, 96), seed: int = 0):
+    """The learning regression's endless batches (images (B, H, W, 3) f32,
+    gt boxes / classes / valid): 1-2 objects an image on textured mid-grey,
+    class 0 a bright square, class 1 a dark ring, 28-38 px (on the 32 px
+    anchor scale); the same numpy draws as the reference's generator."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    g = 4  # GT capacity
+    yy, xx = np.mgrid[0:h, 0:w]
+    while True:
+        images = (128 + 14 * (np.sin(xx / 7.0) * np.cos(yy / 5.0))[None, :, :, None]
+                  + rng.normal(0, 6, (b, h, w, 1))).astype(np.float32)
+        images = np.repeat(images, 3, axis=-1)
+        gt = {"boxes": np.zeros((b, g, 4), np.float32), "classes": np.zeros((b, g), np.int32),
+              "valid": np.zeros((b, g), bool)}
+        for i in range(b):
+            for j in range(int(rng.integers(1, 3))):
+                s = int(rng.integers(28, 39))
+                x = int(rng.integers(2, w - s - 2))
+                y = int(rng.integers(2, h - s - 2))
+                cls = int(rng.integers(0, 2))
+                if cls == 0:
+                    images[i, y:y + s, x:x + s] = 245.0
+                else:
+                    images[i, y:y + s, x:x + s] = 25.0
+                    images[i, y + s // 4:y + s - s // 4, x + s // 4:x + s - s // 4] = 128.0
+                gt["boxes"][i, j] = [x, y, x + s, y + s]
+                gt["classes"][i, j] = cls
+                gt["valid"][i, j] = True
+        yield images, gt
+
+
+# -- detector fine-tuning scenes ------------------------------------------------
+
+
+def detection_scenes(b: int = 4, hw: tuple[int, int] = (768, 1344), seed: int = 0):
+    """Endless seeded fine-tuning batches at the loader's padded train size:
+    (images (B, H, W, 3) float32 BGR on the 0-255 scale, gt from
+    ``data.loader.pad_gt`` at the loader's capacity: boxes (B, 128, 4),
+    classes, valid).
+
+    Textured asphalt with 6-12 vehicles an image drawn as striped boxes,
+    their sides on the RPN's anchor scales (32-256 px, aspect 0.5-2), the
+    class (of the 4 UAV classes) setting the colour, so that the heads have
+    something to learn."""
+    from apse_uav_torch.data.loader import pad_gt
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = ASPHALT + 12 * np.sin(xx / 11.0) * np.cos(yy / 9.0)
+    palette = np.array([[60, 60, 200], [200, 200, 60], [60, 200, 60], [220, 120, 220]], np.float32)
+    while True:
+        images = np.repeat((base[None] + rng.normal(0, 5, (b, h, w)).astype(np.float32))[..., None], 3, axis=3)
+        gts = []
+        for i in range(b):
+            anns = []
+            for _ in range(int(rng.integers(6, 13))):
+                side = float(np.exp(rng.uniform(np.log(32), np.log(256))))
+                aspect = float(np.exp(rng.uniform(np.log(0.5), np.log(2.0))))
+                bw, bh = int(side / np.sqrt(aspect)), int(side * np.sqrt(aspect))
+                bw, bh = min(bw, w - 2), min(bh, h - 2)
+                x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+                cls = int(rng.integers(4))
+                stripes = 0.8 + 0.2 * np.sin(np.arange(bw, dtype=np.float32) / rng.uniform(2, 6))
+                images[i, y:y + bh, x:x + bw] = (palette[cls] * rng.uniform(0.8, 1.2))[None, None] * \
+                    stripes[None, :, None]
+                anns.append({"bbox": [x, y, bw, bh], "category_id": cls})
+            gts.append(pad_gt(anns, 128, (1.0, 1.0), None))
+        yield np.clip(images, 0, 255), {k: np.stack([g[k] for g in gts]) for k in gts[0]}

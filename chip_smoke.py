@@ -92,6 +92,42 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    checkpoint, background bias calibrated) on 2 frames, card
                    against CPU: the same valid detections and classes, boxes
                    within 0.5 px.
+11. train_assoc -- ``train_association_head``'s CLI at its defaults (R101-FPN
+                   backbone frozen, read from phase 7's checkpoint saved as a
+                   ``.pth`` through ``--weights``; ROI 8, 4 frames a batch,
+                   128-d, SGD 0.01 / 0.9, margin 0.2, 2 epochs) on a seeded
+                   synthetic KITTI-MOTS sequence (8 frames of 375x1242, 5
+                   textured objects with fixed ids, PNG + RLE txt through
+                   ``MOTSLoader``): every loss finite, the head changed; the
+                   first step again on the CPU from the same ROIs: loss within
+                   1e-5 relative, the head's change within 1e-5 of its
+                   max-abs; a second run at ``--roi_size 10`` (the tracker's)
+                   whose ``epoch_1`` ``tracker_test --assoc_weights`` loads and
+                   runs on one batch.
+12. train_detector -- ``finetune_detector`` at ``finetune_uav``'s defaults
+                   (R101-FPN, 4 classes, no mask head, batch 4 at 768x1344,
+                   RPN + ROI heads trained, lr 0.02 with its warmup, 2000 /
+                   1000 proposals, 256 / 512 samples) from phase 7's
+                   checkpoint through ``--weights`` on seeded synthetic scenes
+                   (``utils.synthetic.detection_scenes``), 6 iterations,
+                   evaluated every 3 on 4 held-out images: losses finite at
+                   every step, the backbone bit-identical, every trained tensor
+                   changed, 2 results.txt rows, last / bestAP / bestAR, and a
+                   resume from ``last`` at iteration 6 with its optimizer
+                   state; one step at batch 1 on the CPU against the card
+                   on the card's backbone maps and proposals (the maps held
+                   to the CPU's own within 1e-4 of their max-abs; each loss
+                   within 1e-4 relative, the trained tensors' change and
+                   gradients within 1e-4 of their max-abs); then the steady ms a
+                   step (host clock ending in a synchronize), its split by
+                   stage (CUDA events), one step profiled (device busy, idle
+                   share, launches, the largest kernels), its host syncs and
+                   peak memory.
+13. learning    -- the reference's learning regression on the card (R50-FPN,
+                   2 classes, 96x96 scenes, batch 2, lr 0.005, the flax init
+                   under seed 0, 150 iterations, evaluated every 25): the run
+                   must reach AP50 >= 0.7; prints each evaluation's AP50 and
+                   the seconds.
 
 Prints the card's name and power limit and a ``kernels`` JSON line before
 the last line; the last line is the ``{"ok": true, "device": ...}`` object.
@@ -933,6 +969,333 @@ def detector_phase(frames_np, card: str, dev) -> dict:
     return res
 
 
+def remove_checkpoints(workdir: str) -> None:
+    """Delete a training run's checkpoint files (hundreds of MB each) from the
+    output directory once they are checked; results.txt / train_info.txt stay."""
+    for name in os.listdir(workdir):
+        if name in ("last", "bestAP", "bestAR") or name.startswith("epoch_"):
+            os.remove(os.path.join(workdir, name))
+
+
+def _finite_lines(path: str) -> list[float]:
+    with open(path) as f:
+        vals = [float(ln.split()[-1]) for ln in f.read().strip().splitlines()]
+    if not vals or not all(np.isfinite(vals)):
+        raise SmokeFailure(f"{path}: non-finite losses {vals}")
+    return vals
+
+
+def train_assoc_phase(ckpt: dict, card: str, dev, hw=(375, 1242), depth: int = 101) -> dict:
+    """``train_association_head``'s CLI at its defaults on a synthetic
+    KITTI-MOTS sequence (see the module docstring, phase 11); ``hw`` and
+    ``depth`` shrink a CPU rehearsal."""
+    import shutil
+
+    import torch
+
+    from apse_uav_torch.utils.synthetic import tracking_sequence, write_mots_sequence
+
+    root = os.path.join(OUT_DIR, "train_assoc")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    frames, objects = tracking_sequence(8, hw, 5, seed=7)
+    write_mots_sequence(os.path.join(root, "instances"), os.path.join(root, "images"), "0000", frames, objects)
+    with open(os.path.join(root, "seqmap.txt"), "w") as f:
+        f.write("0000 empty 0 7\n")
+    weights_path = os.path.join(root, "detector.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in ckpt.items()}}, weights_path)
+    data_s = time.perf_counter() - t0
+    try:
+        return _train_assoc(root, weights_path, frames, data_s, ckpt, card, dev, depth)
+    finally:  # the checkpoint (~200 MB) and the frames stay out of the output directory
+        os.remove(weights_path)
+        shutil.rmtree(os.path.join(root, "images"), ignore_errors=True)
+
+
+def _train_assoc(root, weights_path, frames, data_s, ckpt, card, dev, depth) -> dict:
+    import torch
+
+    from apse_uav_torch.cli import tracker_test, train_association_head as tah
+    from apse_uav_torch.data.mot import MOTSLoader, RoiFeaturesGenerator
+    from apse_uav_torch.dcnn.models.association import AssociationHead, init_weights
+    from apse_uav_torch.train import optim, steps
+
+    base = ["--instances_txt", os.path.join(root, "instances"), "--images", os.path.join(root, "images"),
+            "--seqmap", os.path.join(root, "seqmap.txt"), "--weights", weights_path, "--epochs", "2",
+            "--depth", str(depth), "--device", dev.type]
+    runs = {}
+    for name, extra in (("roi8", []), ("roi10", ["--roi_size", "10"])):
+        logs = []
+        t0 = time.perf_counter()
+        head = tah.main(base + ["--workdir", os.path.join(root, name)] + extra, log_fn=logs.append)
+        torch.cuda.synchronize()
+        runs[name] = {"head": head, "s": time.perf_counter() - t0,
+                      "losses": _finite_lines(os.path.join(root, name, "train_info.txt"))}
+    head = runs["roi8"]["head"]
+    start = init_weights(256 * 64, 128, seed=0)
+    if np.array_equal(head.fc.weight.detach().cpu().numpy(), start["fc.weight"]):
+        raise SmokeFailure("train_assoc: the head did not change")
+
+    # The first step again, card against CPU, on the same ROIs.
+    args = tah.build_parser().parse_args(base + ["--workdir", "unused"])
+    model, cfg = tah.frozen_backbone(args, dev, ckpt)
+    loader = MOTSLoader(args.instances_txt, args.images, ["0000"], RoiFeaturesGenerator(model, args.roi_size),
+                        args.frames_in_batch)
+    ids, rois = loader.get_training_batch("0000", 0)
+    n = len(ids)
+    cap = 1 << (n - 1).bit_length()
+    ids_p, rois_p, valid = np.zeros(cap, np.int64), np.zeros((cap, *rois.shape[1:]), np.float32), np.arange(cap) < n
+    ids_p[:n], rois_p[:n] = ids, rois
+    step = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        h = AssociationHead(rois[0].size)
+        h.load_state_dict({k: torch.from_numpy(v) for k, v in start.items()})
+        h = h.to(d)
+        opt = optim.SGD(dict(h.named_parameters()), lr=0.01, momentum=0.9, finetune=False)
+        loss = steps.association_train_step(h, opt, torch.from_numpy(rois_p).to(d), torch.from_numpy(ids_p).to(d),
+                                            torch.from_numpy(valid).to(d))
+        step[key] = (float(loss), {k: v.detach().cpu().numpy() for k, v in h.state_dict().items()},
+                     {k: v.cpu().numpy() for k, v in opt.trace.items()})
+    loss_err = abs(step["card"][0] - step["cpu"][0]) / abs(step["cpu"][0])
+    upd_err, upd, grad_err = update_errors(step["card"][1], step["cpu"][1], start, step["card"][2], step["cpu"][2])
+    # tracker_test reads the roi-10 head's epoch_1 through --assoc_weights.
+    head_path = os.path.join(root, "roi10", "epoch_1")
+    targs = tracker_test.build_parser().parse_args(["--sequence", "unused", "--weights", weights_path,
+                                                    "--assoc_weights", head_path, "--depth", str(depth),
+                                                    "--num_classes", "4", "--batch", str(TRACK_BATCH), "--device",
+                                                    dev.type])
+    built = tracker_test.build_tracker(targs, frames.shape[1:3])
+    trained = runs["roi10"]["head"].state_dict()
+    if not all(torch.equal(built[0].head.state_dict()[k].cpu(), v.cpu()) for k, v in trained.items()):
+        raise SmokeFailure("train_assoc: tracker_test --assoc_weights did not load the trained head")
+    recents, tstats = tracker_test.track_sequence(targs, list(frames[:TRACK_BATCH, :, :, ::-1]), built)
+    res = {"frames": len(frames), "size": list(frames.shape[1:3]), "rois_first_batch": n, "padded_to": cap,
+           "gradient_err_card_cpu": grad_err,
+           "data_s": round(data_s, 3), "epoch_losses": {k: r["losses"] for k, r in runs.items()},
+           "run_s": {k: round(r["s"], 3) for k, r in runs.items()}, "first_step_loss": step["card"][0],
+           "loss_rel_err_card_cpu": loss_err, "update_err_card_cpu": upd_err, "update_max_abs": upd,
+           "tracker_test_frames": tstats["frames"], "card": card}
+    log({"phase": "train_assoc", **res})
+    for name in ("roi8", "roi10"):
+        remove_checkpoints(os.path.join(root, name))
+    if len(recents) != TRACK_BATCH:
+        raise SmokeFailure(f"train_assoc: tracker_test gave {len(recents)} snapshots for {TRACK_BATCH} frames")
+    if loss_err > 1e-5 or upd_err > 1e-5 or grad_err > 1e-5:
+        raise SmokeFailure(f"train_assoc: card vs CPU first step: loss {loss_err}, update {upd_err}, gradient "
+                           f"{grad_err} (limits 1e-5)")
+    return res
+
+
+def update_errors(card: dict, cpu: dict, start: dict, card_trace: dict, cpu_trace: dict) -> tuple:
+    """Card against CPU after one step from the same ``start``: (the largest
+    difference of the updated tensors beyond the 2 ulp that rounding each
+    side's own sum p + u can give, over the update's max-abs; that max-abs;
+    the momentum traces' (the first step's gradients) largest difference
+    over their max-abs)."""
+    upd = max(float(np.abs(v - np.asarray(start[k])).max()) for k, v in cpu.items())
+    excess = max(float(np.maximum(np.abs(card[k] - v) - 2 * np.spacing(np.abs(v)), 0).max()) for k, v in cpu.items())
+    scale = max(float(np.abs(v).max()) for v in cpu_trace.values())
+    grad = max(float(np.abs(card_trace[k] - v).max()) for k, v in cpu_trace.items()) / scale
+    return excess / upd, upd, grad
+
+
+def detector_step_profile(model, opt, images, gt, key) -> dict:
+    """A training step of ``model`` on the card: steady ms (host clock ending
+    in a synchronize), its split by stage (CUDA events at the step's marks),
+    one step profiled, its host syncs and peak memory."""
+    import torch
+
+    from apse_uav_torch.train import steps
+
+    def step(mark=None):
+        return steps.detector_train_step(model, opt, images, gt, key, True, mark=mark)
+
+    step_ms = wall_ms(step, iters=5)
+    events = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((stage, ev))
+
+    split = {}
+    for _ in range(3):
+        events.clear()
+        mark("start")
+        step(mark)
+        torch.cuda.synchronize()
+        for (_, a), (stage, b) in zip(events, events[1:]):
+            split.setdefault(stage, []).append(a.elapsed_time(b))
+    split = {k: round(float(np.median(v)), 3) for k, v in split.items()}
+    profile = profile_call(step, step_ms)
+    profile["top_kernels"] = profile["top_kernels"][:6]
+    syncs = count_syncs(step)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return {"step_ms": round(step_ms, 3), "split_ms": split, "syncs_per_step": syncs,
+            "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3), "profile": profile}
+
+
+def train_detector_phase(ckpt: dict, card: str, dev, hw=None, depth: int = 101) -> dict:
+    """``finetune_detector`` at ``finetune_uav``'s defaults (see the module
+    docstring, phase 12); ``hw`` (the train size) and ``depth`` shrink a CPU
+    rehearsal."""
+    import shutil
+
+    import torch
+
+    from apse_uav_torch import _build
+    from apse_uav_torch.cli import finetune_uav
+    from apse_uav_torch.dcnn import flax_init
+    from apse_uav_torch.train import checkpoint as tckpt, loop, optim, steps
+    from apse_uav_torch.utils.synthetic import detection_scenes
+
+    root = os.path.join(OUT_DIR, "train_detector")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    weights_path = os.path.join(root, "detector.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in ckpt.items()}}, weights_path)
+    workdir = os.path.join(root, "run")
+    size = [] if hw is None else ["--train_size", str(hw[0]), str(hw[1])]
+    args = finetune_uav.build_parser().parse_args(["--workdir", workdir, "--weights", weights_path, "--max_iter", "6",
+                                                   "--test_period", "3", "--depth", str(depth), "--device", dev.type]
+                                                  + size)
+    cfg = finetune_uav.model_config(args)
+    t0 = time.perf_counter()
+    try:
+        init = finetune_uav.initial_weights(args, cfg, dev)
+    finally:
+        os.remove(weights_path)
+    init_s = time.perf_counter() - t0
+    hw = tuple(args.train_size)
+    evals = [next(detection_scenes(args.batch_size, hw, seed=99))]
+    losses, logs = [], []
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    model = loop.finetune_detector(cfg, detection_scenes(args.batch_size, hw, seed=0), lambda: evals, workdir,
+                                   max_iter=args.max_iter, to_train=tuple(args.to_train), lr=args.lr,
+                                   test_period=args.test_period, init_params=init, device=dev, log_fn=logs.append,
+                                   on_step=lambda i, l: losses.append({k: float(v) for k, v in l.items()}))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    if len(losses) != 6 or not all(np.isfinite(v) for l in losses for v in l.values()):
+        raise SmokeFailure(f"train_detector: losses {losses}")
+    trained = [k for k, lab in optim.param_labels(list(init), args.to_train).items() if lab == "train"]
+    got = model.state_dict()
+    frozen_changed = [k for k in init if k not in trained and not torch.equal(got[k].cpu(), init[k].cpu())]
+    unchanged = [k for k in trained if torch.equal(got[k].cpu(), init[k].cpu())]
+    if frozen_changed or unchanged:
+        raise SmokeFailure(f"train_detector: frozen changed {frozen_changed[:3]}, trained unchanged {unchanged[:3]}")
+    with open(os.path.join(workdir, "results.txt")) as f:
+        rows = f.read().strip().splitlines()
+    missing = [n for n in ("last", "bestAP", "bestAR") if not os.path.exists(os.path.join(workdir, n))]
+    if len(rows) != 3 or missing:
+        raise SmokeFailure(f"train_detector: results.txt rows {len(rows) - 1}, missing checkpoints {missing}")
+    state = tckpt.load_state(workdir, "last")
+    resumed = loop.finetune_detector(cfg, detection_scenes(args.batch_size, hw, seed=0), lambda: evals, workdir,
+                                     max_iter=6, to_train=tuple(args.to_train), init_params=init, device=dev,
+                                     log_fn=logs.append)
+    if (state["iteration"] != 6 or int(state["opt_state"]["count"]) != 6 or "resumed at iteration 6" not in logs
+            or not all(torch.equal(v.cpu(), state["params"][k]) for k, v in resumed.state_dict().items())):
+        raise SmokeFailure(f"train_detector: resume from last: iteration {state['iteration']}, count "
+                           f"{int(state['opt_state']['count'])}, logs {logs[-2:]}")
+    del resumed, state
+    remove_checkpoints(workdir)
+
+    # One step at batch 1, card against CPU, at the schedule's full rate, on
+    # the card's (frozen) backbone maps and proposals: the maps are held to
+    # the CPU's own alone, since ROIAlign's bf16 copy of them turns a last-bit
+    # difference into a whole bf16 step, and top-k and NMS flip on such
+    # differences of the logits.
+    images, gt = next(detection_scenes(1, hw, seed=5))
+    key = flax_init.prng_key(123)
+    one = {}
+    feats = proposals = None
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        m = loop.build_detector(cfg, init, 0, d)
+        tensors = m.state_dict(keep_vars=True)
+        opt = optim.build_finetune_optimizer(tensors, args.to_train, lr=optim.warmup_multistep_schedule(
+            args.lr, (), 1, 1.0))
+        steps.trainable_only(opt.trainable(), tensors.values())
+        x = torch.from_numpy(images).to(d)
+        with torch.no_grad():
+            own_feats = m.features(x)
+        own = m.training_proposals(x, own_feats)
+        if feats is None:
+            feats, proposals = own_feats, own
+        else:  # the CPU's own maps and proposals against the card's
+            map_err = max(float((own_feats[k] - feats[k].cpu()).abs().max() / own_feats[k].abs().max())
+                          for k in own_feats)
+            moved = ((own[0] - proposals[0].cpu()).abs().amax(dim=-1) > 0.01) | (own[1] != proposals[1].cpu())
+        del own_feats
+        l = steps.detector_train_step(m, opt, x, {k: torch.from_numpy(v).to(d) for k, v in gt.items()}, key, True,
+                                      proposals=tuple(t.to(d) for t in proposals),
+                                      features={k: v.to(d) for k, v in feats.items()})
+        one[name] = ({k: float(v) for k, v in l.items()}, {k: tensors[k].detach().cpu().numpy() for k in opt.names},
+                     {k: v.cpu().numpy() for k, v in opt.trace.items()}, time.perf_counter() - t0)
+        del m, opt, tensors
+    loss_err = {k: abs(one["card"][0][k] - v) / abs(v) for k, v in one["cpu"][0].items()}
+    start = {k: torch.as_tensor(init[k]).cpu().numpy() for k in one["cpu"][1]}
+    upd_err, upd, grad_err = update_errors(one["card"][1], one["cpu"][1], start, one["card"][2], one["cpu"][2])
+
+    # The steady step at batch 4 on a fresh model.
+    m = loop.build_detector(cfg, init, 0, dev)
+    tensors = m.state_dict(keep_vars=True)
+    opt = optim.build_finetune_optimizer(tensors, args.to_train, lr=optim.warmup_multistep_schedule(args.lr, (), 50))
+    steps.trainable_only(opt.trainable(), tensors.values())
+    bimages, bgt = next(detection_scenes(args.batch_size, hw, seed=6))
+    perf = detector_step_profile(m, opt, torch.from_numpy(bimages).to(dev),
+                                 {k: torch.from_numpy(v).to(dev) for k, v in bgt.items()}, key)
+    res = {"depth": cfg.depth, "batch": args.batch_size, "size": list(hw), "iterations": 6,
+           "init_s": round(init_s, 3), "run_s": round(run_s, 3), "losses": losses,
+           "results": [r.split("\t")[:3] for r in rows[1:]], "launches": counts,
+           "card_cpu_loss_rel_err": loss_err, "card_cpu_update_err": upd_err, "update_max_abs": upd,
+           "card_cpu_gradient_err": grad_err, "card_cpu_map_rel_err": map_err,
+           "cpu_own_proposals_moved": int(moved.sum()),
+           "proposals": int(proposals[1].sum()),
+           "cpu_step_s": round(one["cpu"][3], 3), **perf, "card": card}
+    log({"phase": "train_detector", **{k: v for k, v in res.items() if k != "profile"}})
+    log({"phase": "train_detector_profile", **perf["profile"]})
+    if max(loss_err.values()) > 1e-4 or upd_err > 1e-4 or grad_err > 1e-4 or map_err > 1e-4:
+        raise SmokeFailure(f"train_detector: card vs CPU: losses {loss_err}, update {upd_err}, gradient "
+                           f"{grad_err}, maps {map_err} (limits 1e-4)")
+    return res
+
+
+def learning_phase(card: str, dev) -> dict:
+    """The reference's learning regression on the card (phase 13)."""
+    import shutil
+
+    import torch
+
+    from apse_uav_torch.train import loop
+    from apse_uav_torch.utils.synthetic import learning_config, learning_scenes
+
+    root = os.path.join(OUT_DIR, "learning")
+    shutil.rmtree(root, ignore_errors=True)
+    evals = [next(learning_scenes(seed=1000 + i)) for i in range(4)]
+    t0 = time.perf_counter()
+    loop.finetune_detector(learning_config(), learning_scenes(seed=0), lambda: evals, root, max_iter=150,
+                           test_period=25, lr=0.005, seed=0, device=dev, log_fn=lambda s: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    remove_checkpoints(root)
+    with open(os.path.join(root, "results.txt")) as f:
+        lines = f.read().strip().splitlines()
+    header = lines[0].split("\t")
+    ap50 = [float(ln.split("\t")[header.index("AP50")]) for ln in lines[1:]]
+    res = {"iterations": 150, "ap50_every_25": ap50, "ap50_final": ap50[-1], "ap50_best": max(ap50),
+           "seconds": round(seconds, 3), "card": card}
+    log({"phase": "learning", **res})
+    if len(ap50) != 6 or max(ap50) < 0.7:
+        raise SmokeFailure(f"learning: AP50 {ap50} never reached 0.7")
+    return res
+
+
 def scene_specs(i: int):
     from apse_uav_torch.utils.synthetic import MarkerSpec
 
@@ -1276,10 +1639,17 @@ def main() -> int:
 
     # -- 8.-10. tracker_test (float32 and bf16), association, detector_test -------
     t8 = tracker_eval_phase(frames_np, t7, card, dev)
+    ckpt = t7["ckpt"]
     del t7
     association_phase(frames_np, t8, card, dev)
     del t8
     detector_phase(frames_np, card, dev)
+
+    # -- 11.-13. training: the association head, the detector, the learning bar --
+    torch.cuda.empty_cache()
+    train_assoc_phase(ckpt, card, dev)
+    train_detector_phase(ckpt, card, dev)
+    learning_phase(card, dev)
 
     print(card)
     log({"kernels": kernels})

@@ -1,8 +1,11 @@
 """PyTorch port, the DCNN test CLIs on the CPU: ``tracker_test`` in its
 ``--sequence`` and ``--mots_evaluation`` modes on two tiny frames, its
 results through ``mots_eval``, ``images_to_txt`` and ``mots_vis``;
-``detector_test`` and ``aerial_view_test``; ``--help`` of every ported CLI;
-and the device rule (``--device cuda`` without a card raises).
+``detector_test`` and ``aerial_view_test``; the training CLIs
+(``finetune_uav``, ``train_association_head``, ``association_head_test``) on
+tiny fixtures, and (``slow``) ``train_association_head`` against the JAX
+CLI; ``--help`` of every ported CLI; and the device rule (``--device cuda``
+without a card raises).
 
 Weights are seeded detectron2-format checkpoints
 (``utils.synthetic.detectron2_checkpoint``); frames are made with numpy.
@@ -20,7 +23,7 @@ from apse_uav_torch.utils.synthetic import detectron2_checkpoint
 
 SMALL = ["--min_size", "64", "--max_size", "128", "--proposal_topk", "32", "--detections", "6"]
 CLIS = ["track_uav", "tracker_test", "detector_test", "aerial_view_test", "mots_eval", "images_to_txt", "mots_vis",
-        "aruco_detect"]
+        "aruco_detect", "finetune_uav", "train_association_head", "association_head_test"]
 
 
 def _frames(n=2, hw=(48, 64)):
@@ -131,6 +134,107 @@ def test_detector_and_aerial_view_cli_on_cpu(tmp_path, capsys):
     assert set(det) == {"valid", "ids", "boxes", "scores", "classes"} and det["boxes"].shape[1] == 4
 
 
+def _save_pth(path, classes, mask_on=True):
+    torch.save({"model": {k: torch.from_numpy(v)
+                          for k, v in detectron2_checkpoint(1, 50, classes, mask_on=mask_on).items()}}, str(path))
+
+
+def test_finetune_uav_cli_on_cpu(tmp_path, capsys):
+    """``finetune_uav`` on a 2-image VisDrone tree (R50 from a seeded ``.pth``,
+    batch 1 at 64x96, 1 iteration and its evaluation): results.txt, last /
+    bestAP / bestAR with the optimizer state at iteration 1; a second run
+    resumes there and takes iteration 2."""
+    from PIL import Image
+
+    from apse_uav_torch.cli import finetune_uav
+
+    vis = tmp_path / "vis"
+    (vis / "images").mkdir(parents=True)
+    (vis / "annotations").mkdir()
+    for i in range(2):
+        Image.fromarray(_frames(1, (64, 96))[0]).save(vis / "images" / f"{i:07d}.png")
+        (vis / "annotations" / f"{i:07d}.txt").write_text("10,10,30,20,1,4,0,0\n40,30,20,25,1,1,0,0\n")
+    _save_pth(tmp_path / "w.pth", 4, mask_on=False)
+    argv = ["--visdrone_train", str(vis), "--workdir", str(tmp_path / "run"), "--weights", str(tmp_path / "w.pth"),
+            "--depth", "50", "--max_iter", "1", "--test_period", "1", "--batch_size", "1", "--train_size", "64", "96",
+            "--eval_images", "1", "--device", "cpu"]
+    assert finetune_uav.main(argv) == 0
+    lines = (tmp_path / "run" / "results.txt").read_text().strip().split("\n")
+    assert len(lines) == 2 and lines[1].startswith("1\t")
+    for name in ("last", "bestAP", "bestAR"):
+        assert os.path.exists(tmp_path / "run" / name)
+    state = tckpt.load_state(str(tmp_path / "run"), "last")
+    assert state["iteration"] == 1 and int(state["opt_state"]["count"]) == 1
+    assert all(k.startswith(("proposal_generator.", "roi_heads.")) for k in state["opt_state"]["trace"])
+    assert finetune_uav.main(argv[:argv.index("--max_iter") + 1] + ["2"] + argv[argv.index("--max_iter") + 2:]) == 0
+    assert "resumed at iteration 1" in capsys.readouterr().out
+    assert tckpt.load_state(str(tmp_path / "run"), "last")["iteration"] == 2
+
+
+@pytest.fixture(scope="module")
+def assoc_files(tmp_path_factory):
+    """A KITTI-MOTS tree (sequence 0001: 8 frames of 48x80, 4 objects), its
+    seqmap, the same sequence in MOT17's layout, and a seeded R50 ``.pth``."""
+    from apse_uav_torch.utils.synthetic import tracking_sequence, write_mot_sequence, write_mots_sequence
+
+    root = tmp_path_factory.mktemp("assoc")
+    frames, objects = tracking_sequence(8, (48, 80), 4, seed=1)
+    write_mots_sequence(str(root / "instances"), str(root / "images"), "0001", frames, objects)
+    write_mot_sequence(str(root / "MOT-01"), frames, objects)
+    (root / "seqmap.txt").write_text("0001 empty 0 7\n")
+    _save_pth(root / "w.pth", 80)
+    return root
+
+
+def _assoc_argv(root, workdir):
+    return ["--instances_txt", str(root / "instances"), "--images", str(root / "images"), "--seqmap",
+            str(root / "seqmap.txt"), "--weights", str(root / "w.pth"), "--workdir", str(workdir), "--depth", "50",
+            "--epochs", "2"]
+
+
+def test_association_training_and_test_clis_on_cpu(assoc_files, tmp_path, capsys):
+    """``train_association_head`` (2 epochs of 2 batches of 4 frames):
+    ``epoch_0`` / ``epoch_1`` and ``train_info.txt``; ``association_head_test``
+    reads ``epoch_1`` through ``--assoc_weights`` and reports the anchor's
+    nearest-neighbour accuracy."""
+    from apse_uav_torch.cli import association_head_test, train_association_head
+
+    head = train_association_head.main(_assoc_argv(assoc_files, tmp_path / "run") + ["--device", "cpu"])
+    assert head.fc.weight.shape == (128, 256 * 64)
+    lines = (tmp_path / "run" / "train_info.txt").read_text().strip().split("\n")
+    assert [ln.split(":")[0] for ln in lines] == ["epoch 0", "epoch 1"]
+    assert all(np.isfinite(float(ln.split()[-1])) for ln in lines)
+    state = tckpt.load_state(str(tmp_path / "run"), "epoch_1")
+    assert state["epoch"] == 1
+    np.testing.assert_array_equal(state["params"]["fc.weight"].numpy(), head.fc.weight.detach().numpy())
+    capsys.readouterr()
+    assert association_head_test.main(["--sequence", str(assoc_files / "MOT-01"), "--weights",
+                                       str(assoc_files / "w.pth"), "--assoc_weights", str(tmp_path / "run" / "epoch_1"),
+                                       "--depth", "50", "--frames", "5", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("frame ") == 4 and "nearest-neighbor accuracy" in out
+
+
+@pytest.mark.slow
+def test_train_association_head_cli_matches_jax(assoc_files, tmp_path):
+    """The port's ``train_association_head`` against the JAX CLI on the same
+    files: ``train_info.txt`` within 1e-4 of each epoch's loss (the ROIs
+    agree to ~1e-6 of their max-abs, the init to 1 ulp)."""
+    from apse_uav_tpu.cli import train_association_head as jcli
+    from apse_uav_torch.cli import train_association_head
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    assert jcli.main(_assoc_argv(assoc_files, tmp_path / "jax")) == 0
+    train_association_head.main(_assoc_argv(assoc_files, tmp_path / "port") + ["--device", "cpu"])
+    want = (tmp_path / "jax" / "train_info.txt").read_text().strip().split("\n")
+    got = (tmp_path / "port" / "train_info.txt").read_text().strip().split("\n")
+    assert len(want) == len(got) == 2
+    for a, b in zip(want, got):
+        assert abs(float(a.split()[-1]) - float(b.split()[-1])) <= 1e-4 * abs(float(a.split()[-1])) + 2e-6
+
+
 @pytest.mark.parametrize("cli", CLIS)
 def test_cli_help(cli, capsys):
     """``--help`` of every ported CLI exits 0 and names its flags."""
@@ -154,3 +258,10 @@ def test_cli_device_rule():
     args = detector_test.build_parser().parse_args(["--images", "x", "--weights", "unused.pth"])
     with pytest.raises(RuntimeError, match="cuda"):
         detector_test.build_predictor(args, (48, 64), {})
+    from apse_uav_torch.cli import finetune_uav, train_association_head
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        finetune_uav.main(["--workdir", "unused", "--visdrone_train", "unused"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_association_head.main(["--instances_txt", "x", "--images", "x", "--seqmap", "x", "--weights", "x",
+                                     "--workdir", "x"])

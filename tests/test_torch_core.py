@@ -49,7 +49,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'apse_uav_torch.evaluation.rle', 'apse_uav_torch.evaluation.mots', 'apse_uav_torch.train.checkpoint',\n"
         "        'apse_uav_torch.evaluation.mots_export', 'apse_uav_torch.cli.mots_vis', 'apse_uav_torch.cli.mots_eval',\n"
         "        'apse_uav_torch.cli.images_to_txt', 'apse_uav_torch.cli.aerial_view_test', 'apse_uav_torch.cli.track_uav',\n"
-        "        'apse_uav_torch.utils.videowriter', 'apse_uav_torch.aruco.pipeline', 'apse_uav_torch.dcnn.engines'}\n"
+        "        'apse_uav_torch.utils.videowriter', 'apse_uav_torch.aruco.pipeline', 'apse_uav_torch.dcnn.engines',\n"
+        "        'apse_uav_torch.dcnn.losses', 'apse_uav_torch.data.mot', 'apse_uav_torch.data.datasets',\n"
+        "        'apse_uav_torch.data.loader', 'apse_uav_torch.train.optim', 'apse_uav_torch.train.steps',\n"
+        "        'apse_uav_torch.train.loop', 'apse_uav_torch.evaluation.coco_eval', 'apse_uav_torch.cli.finetune_uav',\n"
+        "        'apse_uav_torch.cli.train_association_head', 'apse_uav_torch.cli.association_head_test'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'apse_uav_tpu'))]\n"
         "assert not bad, bad\n"

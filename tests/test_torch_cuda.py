@@ -407,3 +407,90 @@ def test_association_metrics_cuda_match_cpu(dev, metric):
         out[device] = tracker.process_frames(frames)
     for k in ("valid", "ids", "classes"):
         np.testing.assert_array_equal(out["cuda"][k], out["cpu"][k], err_msg=k)
+
+
+def test_device_threefry_matches_numpy(dev):
+    """The training streams on the card: ``split``-derived keys' uniforms (the
+    sampling priorities) bit for bit against the numpy reproduction of
+    ``jax.random``, the normal and the LeCun init against the CPU's."""
+    from apse_uav_torch.dcnn import flax_init
+
+    keys = flax_init.split(flax_init.prng_key(7), 4)
+    got = flax_init.uniform_t(keys, 300_001, dev).cpu().numpy()
+    for i in range(4):
+        np.testing.assert_array_equal(got[i], flax_init.uniform(keys[i], (300_001,), 0.0, 1.0))
+    np.testing.assert_array_equal(flax_init.normal_t(keys[0], 50_000, dev, 0.01).cpu().numpy(),
+                                  flax_init.normal_t(keys[0], 50_000, "cpu", 0.01).numpy())
+    np.testing.assert_array_equal(flax_init.lecun_normal_t(keys[1], (3, 3, 64, 32), dev).cpu().numpy(),
+                                  flax_init.lecun_normal_t(keys[1], (3, 3, 64, 32), "cpu").numpy())
+
+
+def test_detector_train_step_cuda_matches_cpu(dev):
+    """One fine-tune step of the tiny R50 (RPN + ROI heads, frozen backbone,
+    mask head on; batch 2 at 64x64) on the card against the CPU from the same
+    weights, batch, key, backbone maps and proposals (the card's: ROIAlign's
+    bfloat16 copy of the maps turns a last-bit difference into a bf16 step,
+    top-k and NMS flip on such differences of the logits; the maps
+    themselves within 1e-4 of their max-abs): each loss within 1e-4 relative, the trained
+    tensors' change within 1e-4 of its max-abs (plus 2 ulp), the frozen ones
+    untouched on both."""
+    import dataclasses
+
+    from apse_uav_torch.dcnn.config import mask_rcnn_r50_fpn
+    from apse_uav_torch.dcnn.engines import full_fp32
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint, learning_scenes
+
+    cfg = mask_rcnn_r50_fpn(2)
+    cfg = dataclasses.replace(
+        cfg, rpn=dataclasses.replace(cfg.rpn, pre_nms_topk_train=64, post_nms_topk_train=32, batch_size_per_image=32),
+        roi=dataclasses.replace(cfg.roi, batch_size_per_image=16))
+    ckpt = detectron2_checkpoint(3, 50, 2)
+    images, gt = next(learning_scenes(2, (64, 64), seed=2))
+    gt["masks"] = np.zeros((2, 4, 64, 64), np.float32)
+    for i in range(2):
+        for j in range(4):
+            x1, y1, x2, y2 = gt["boxes"][i, j].astype(int)
+            gt["masks"][i, j, y1:y2, x1:x2] = 1.0
+    out, given = {}, None
+    for d in (dev, torch.device("cpu")):
+        with full_fp32():  # no TF32 in cuDNN's convolutions
+            out[d.type], given = _one_step(cfg, ckpt, images, gt, d, given)
+    (gl, gp, names), (cl, cp, _) = out["cuda"], out["cpu"]
+    for k, v in cl.items():
+        assert abs(gl[k] - v) <= 1e-4 * abs(v), (k, gl[k], v)
+    upd = max(float((cp[n] - torch.as_tensor(ckpt[n])).abs().max()) for n in names)
+    for n in gp:
+        if n in names:
+            tol = 1e-4 * upd + 2 * np.spacing(cp[n].abs().numpy())
+            assert (np.abs((gp[n] - cp[n]).numpy()) <= tol).all(), n
+        else:
+            assert torch.equal(gp[n], cp[n]) and torch.equal(cp[n], torch.as_tensor(ckpt[n])), n
+
+
+def _one_step(cfg, ckpt, images, gt, d, given=None):
+    """One fine-tune step of ``cfg``'s model from ``ckpt`` on ``d``, on the
+    ``given`` (maps, proposals) or its own: ((losses, every tensor after the
+    step, the trained names), the (maps, proposals) used)."""
+    from apse_uav_torch.dcnn import flax_init, weights as W
+    from apse_uav_torch.dcnn.models.mask_rcnn import MaskRCNN
+    from apse_uav_torch.train import optim, steps
+
+    model = MaskRCNN(cfg)
+    W.load_detectron2(model, ckpt)
+    model = model.to(d)
+    tensors = model.state_dict(keep_vars=True)
+    opt = optim.build_finetune_optimizer(tensors, lr=optim.warmup_multistep_schedule(0.02, (), 1, 1.0))
+    steps.trainable_only(opt.trainable(), tensors.values())
+    x = torch.from_numpy(images).to(d)
+    with torch.no_grad():
+        feats = model.features(x)
+    if given is None:
+        given = feats, model.training_proposals(x, feats)
+    else:
+        for k, v in feats.items():
+            assert float((v - given[0][k].to(d)).abs().max()) <= 1e-4 * float(v.abs().max()), k
+    feats, proposals = {k: v.to(d) for k, v in given[0].items()}, tuple(t.to(d) for t in given[1])
+    losses = steps.detector_train_step(model, opt, x, {k: torch.from_numpy(v).to(d) for k, v in gt.items()},
+                                       flax_init.prng_key(5), True, proposals=proposals, features=feats)
+    return ({k: float(v) for k, v in losses.items()}, {k: v.detach().cpu() for k, v in tensors.items()},
+            opt.names), given
