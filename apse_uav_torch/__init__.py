@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of apse-uav: the ArUco measurement pipeline and the
-DCNN (Mask R-CNN) vehicle tracker.
+"""PyTorch + CUDA port of apse-uav: the ArUco measurement pipeline, the
+DCNN (Mask R-CNN) vehicle tracker, its training and tools, and frame / data
+parallelism over several cards (``parallel/``).
 
 The JAX package beside it in this repository is the reference; this package
 mirrors its layout and names (``aruco/detector.py`` there is

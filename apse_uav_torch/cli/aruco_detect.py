@@ -2,8 +2,9 @@
 
 Flags and CSV schemas are those of the JAX reference's ``cli/aruco_detect.py``
 (images ``image_%04d.png``, the cam_params.json format, the DCNN centroid
-CSV, both result schemas, annotated images with ``--save_images``), plus
-``--device cuda|cpu``.  ``cuda`` raises when no card is visible; it never
+CSV, both result schemas, annotated images with ``--save_images``, the live
+annotated view with ``--display``: the reference's imshow loop, ``q``
+quits), plus ``--device cuda|cpu``.  ``cuda`` raises when no card is visible; it never
 falls back to the CPU.  TF32 is switched off for matmuls and cuDNN so that
 the geometry stays in full float32.
 
@@ -48,6 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=8, help="frames per device batch")
     p.add_argument("--width", type=int, default=3840)
     p.add_argument("--height", type=int, default=2160)
+    p.add_argument("--display", action="store_true",
+                   help="live annotated view (reference aruco_detect.py:787-800 imshow loop; 'q' quits)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default; raises when no card is visible) or cpu (plain PyTorch path)")
     return p
@@ -134,6 +137,31 @@ def _save_annotated(out_dir: str, k: int, frame: np.ndarray, row: dict) -> None:
     cv2.imwrite(os.path.join(out_dir, f"image_{k:04d}.png"), _annotate(frame, row))
 
 
+class Display:
+    """The reference's live view: each annotated frame in one cv2 window;
+    ``q`` asks to stop (:attr:`quit`).  cv2 is imported when the first frame
+    is shown."""
+
+    WINDOW = "aruco_detect"
+
+    def __init__(self):
+        self.quit = False
+        self.cv2 = None
+
+    def show(self, frame: np.ndarray, row: dict) -> None:
+        if self.cv2 is None:
+            import cv2
+
+            self.cv2 = cv2
+        self.cv2.imshow(self.WINDOW, _annotate(frame, row))
+        if self.cv2.waitKey(1) & 0xFF == ord("q"):
+            self.quit = True
+
+    def close(self) -> None:
+        if self.cv2 is not None:
+            self.cv2.destroyAllWindows()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not args.use_images and not args.use_video:
@@ -159,6 +187,7 @@ def main(argv=None) -> int:
     carry = init_carry(cfg, device)
     centroid_data = csv_io.read_centroid_data(args.path_dcnn_data) if args.use_centroid_data else None
     writer = csv_io.ResultsWriter(args.path_output_results, args.use_centroid_data) if args.save_results else None
+    display = Display() if args.display else None
 
     n_frames = 0
     first = True
@@ -180,6 +209,8 @@ def main(argv=None) -> int:
                 writer.write_frame(k, row)
             if args.save_images and args.path_output_images:
                 _save_annotated(args.path_output_images, k, frames[i], row)
+            if display is not None and not display.quit:
+                display.show(frames[i], row)
         n_frames += len(ks)
 
     try:
@@ -192,11 +223,16 @@ def main(argv=None) -> int:
             if len(ks) == args.batch:
                 run(ks, frames)
                 ks, frames = [], []
-        if ks:
-            run(ks, frames)
+                if display is not None and display.quit:
+                    break
+        else:
+            if ks:
+                run(ks, frames)
     finally:
         if writer is not None:
             writer.close()
+        if display is not None:
+            display.close()
     dt = time.perf_counter() - t_start
     print(f"processed {n_frames} frames in {dt:.2f}s ({n_frames / dt:.1f} fps)" if n_frames else "no frames processed")
     return 0

@@ -8,6 +8,8 @@ any other unknown field raises, so a new option is never silently lost.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -28,7 +30,12 @@ def _from_dict(cls, d: dict, tpu_only: set):
     unknown = set(d) - known
     if unknown:
         raise ValueError(f"{cls.__name__} has no field(s) {sorted(unknown)}")
-    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})
+    return cls(**{k: _tuples(v) for k, v in d.items()})
+
+
+def _tuples(v):
+    """Lists (nested ones too, e.g. C4's anchor sizes) as tuples."""
+    return tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple)) else v
 
 
 def detector_params(d: dict) -> DetectorParams:
@@ -102,24 +109,37 @@ def _flax_dense(k) -> np.ndarray:
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
 
+def _resnet_key(bb: str, parts: list[str]):
+    """A path inside a JAX ResNet (``stem_conv``, ``res3_1/bn2/scale``, ...)
+    under the detectron2 prefix ``bb`` -> (detectron2 key, layout function)."""
+    leaf = parts[-1]
+    if parts[0] == "stem_conv":
+        return f"{bb}.stem.conv1.weight", _flax_conv
+    if parts[0] == "stem_bn":
+        return f"{bb}.stem.conv1.norm.{_BN[leaf]}", np.asarray
+    stage, idx = parts[0][3:].split("_")  # res{stage}_{idx}
+    base, layer = f"{bb}.res{stage}.{idx}", parts[1]
+    if layer in ("conv1", "conv2", "conv3", "shortcut"):
+        return f"{base}.{layer}.weight", _flax_conv
+    conv = "shortcut" if layer == "shortcut_bn" else f"conv{layer[2:]}"
+    return f"{base}.{conv}.norm.{_BN[leaf]}", np.asarray
+
+
 def _mask_rcnn_key(path: str):
-    """A JAX MaskRCNN parameter path -> (detectron2 key, layout function)."""
+    """A JAX MaskRCNN or MaskRCNNC4 parameter path -> (detectron2 key, layout function)."""
     parts = path.split("/")
     leaf = parts[-1]
     ident = np.asarray
+    trunk = re.fullmatch(r"stem_(conv|bn)|res[2-5]_\d+", parts[1]) if len(parts) > 2 else None
     if parts[:2] == ["backbone", "resnet"]:
-        bb = "backbone.bottom_up"
-        if parts[2] == "stem_conv":
-            return f"{bb}.stem.conv1.weight", _flax_conv
-        if parts[2] == "stem_bn":
-            return f"{bb}.stem.conv1.norm.{_BN[leaf]}", ident
-        stage, idx = parts[2][3:].split("_")  # res{stage}_{idx}
-        base, layer = f"{bb}.res{stage}.{idx}", parts[3]
-        if layer in ("conv1", "conv2", "conv3", "shortcut"):
-            return f"{base}.{layer}.weight", _flax_conv
-        conv = "shortcut" if layer == "shortcut_bn" else f"conv{layer[2:]}"
-        return f"{base}.{conv}.norm.{_BN[leaf]}", ident
+        return _resnet_key("backbone.bottom_up", parts[2:])
+    if parts[0] == "backbone" and trunk:  # C4: the trunk is the backbone
+        return _resnet_key("backbone", parts[1:])
+    if parts[0] == "res5" and trunk:  # C4: res5 lives in the ROI heads
+        return _resnet_key("roi_heads", parts[1:])
     suffix, conv_fn = ("weight", _flax_conv) if leaf == "kernel" else ("bias", ident)
+    if parts[0] == "box_predictor":  # C4's predictor, no FC trunk
+        return f"roi_heads.box_predictor.{parts[1]}.{suffix}", _flax_dense if leaf == "kernel" else ident
     if parts[:2] == ["backbone", "fpn"]:
         kind = "lateral" if parts[2].startswith("lateral") else "output"
         return f"backbone.fpn_{kind}{parts[2][len(kind):]}.{suffix}", conv_fn
@@ -136,8 +156,8 @@ def _mask_rcnn_key(path: str):
 
 
 def mask_rcnn_state_dict(flat: dict) -> dict[str, np.ndarray]:
-    """The JAX MaskRCNN parameters ({'/'-joined flax path: array}, e.g.
-    ``weights.flatten`` of the tree) -> the port's MaskRCNN state dict
+    """The JAX MaskRCNN or MaskRCNNC4 parameters ({'/'-joined flax path:
+    array}, e.g. ``weights.flatten`` of the tree) -> the port's state dict
     (detectron2 names): convolutions HWIO -> OIHW, Dense kernels transposed,
     the ConvTranspose kernel flipped back.  An unknown path raises."""
     out = {}

@@ -1,4 +1,4 @@
 """Host-side data pipelines of the port: dataset-dict generators, the
-detection loader, and the MOT / KITTI-MOTS loaders of association-head
-training (counterparts of the JAX reference's ``data`` package; COWC waits,
-see ``ROADMAP.md``)."""
+detection loader, the MOT / KITTI-MOTS loaders of association-head training
+and the COWC ROI-feature loader (counterparts of the JAX reference's
+``data`` package)."""

@@ -6,17 +6,20 @@ Counterpart of the JAX reference's ``dcnn/engines.py``:
   R-CNN inference, detections mapped back to the original frame;
 * :class:`RcnnTracker` -- detect -> embed -> associate -> track over batches
   of frames: the detector and the embeddings run on the whole batch, only
-  the association loops over its frames.
+  the association loops over its frames;
+* :class:`SelectivePredictor` -- proposals from the coarsest RPN level only,
+  each stage timed.
 
-``SelectivePredictor`` is not ported yet (``ROADMAP.md``).  Every entry
-point runs on ``cuda`` unless the caller asks for ``cpu``; there is no
-fallback.  The float32 model runs in true float32 on the card: TF32 is off
+The predictors build their model through ``c4.build_model`` (R-FPN or C4).
+Every entry point runs on ``cuda`` unless the caller asks for ``cpu``; there
+is no fallback.  The float32 model runs in true float32 on the card: TF32 is off
 for matrix products and convolutions inside every call (:func:`full_fp32`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -25,9 +28,9 @@ import torch.nn.functional as F
 from apse_uav_torch.dcnn import structures, tracker as tracker_mod
 from apse_uav_torch.dcnn.config import ModelConfig, TrackerConfig
 from apse_uav_torch.dcnn.models.association import AssociationHead
-from apse_uav_torch.dcnn.models.mask_rcnn import MaskRCNN, check_supported
+from apse_uav_torch.dcnn.models.c4 import build_model
 from apse_uav_torch.dcnn.weights import load_detectron2
-from apse_uav_torch.device import resolve_device
+from apse_uav_torch.device import resolve_device, synchronize
 
 
 @contextlib.contextmanager
@@ -101,13 +104,12 @@ class TrackPredictor:
     """
 
     def __init__(self, cfg: ModelConfig, weights, orig_hw: tuple[int, int], device="cuda"):
-        check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.orig_hw = tuple(orig_hw)
         self.pad_hw, self.net_hw = resize_target(self.orig_hw, cfg.input.min_size_test, cfg.input.max_size_test,
                                                  cfg.input.pad_divisibility)
-        self.model = MaskRCNN(cfg).eval().requires_grad_(False)
+        self.model = build_model(cfg).eval().requires_grad_(False)
         self.missing = load_detectron2(self.model, weights)[0] if weights is not None else []
         self.model.to(self.device)
         nh, nw = self.net_hw
@@ -147,6 +149,44 @@ class TrackPredictor:
         with full_fp32():
             dets, feats = self.model.inference(x)
         return self.postprocess(dets), feats
+
+
+class SelectivePredictor:
+    """Proposals from the coarsest RPN level only, each stage timed (the
+    reference's SelectiveMaskRCNN scan and SelectiveRPN,
+    selective_rcnn.py:46-76, selective_rpn.py:47-48).
+
+    ``__call__`` runs the backbone alone, then the whole inference with
+    ``rpn_levels``; each stage is bracketed by a synchronize of the device,
+    and its seconds land in ``timings["backbone"]`` and
+    ``timings["selective_scan"]``.  Boxes are scaled to ``orig_hw`` as the
+    reference scales them (not re-clipped)."""
+
+    def __init__(self, cfg: ModelConfig, weights, orig_hw: tuple[int, int], rpn_levels: tuple[str, ...] = ("p6",),
+                 device="cuda"):
+        self.base = TrackPredictor(cfg, weights, orig_hw, device)
+        self.device = self.base.device
+        self.rpn_levels = tuple(rpn_levels)
+        self.timings: dict[str, float] = {}
+        (oh, ow), (nh, nw) = self.base.orig_hw, self.base.net_hw
+        self._scale = torch.tensor([ow / nw, oh / nh, ow / nw, oh / nh], dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def __call__(self, frames_u8) -> dict[str, torch.Tensor]:
+        """frames (B, H, W, 3) u8 -> detections (boxes in original coordinates)."""
+        x = self.base.resize(frames_u8)
+        model = self.base.model
+        with full_fp32():
+            synchronize(self.device)
+            t0 = time.perf_counter()
+            model.features(x)
+            synchronize(self.device)
+            self.timings["backbone"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dets, _ = model.inference(x, rpn_levels=self.rpn_levels)
+            synchronize(self.device)
+            self.timings["selective_scan"] = time.perf_counter() - t0
+        return {**dets, "boxes": dets["boxes"] * self._scale}
 
 
 class RcnnTracker:

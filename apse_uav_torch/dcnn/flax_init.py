@@ -262,9 +262,10 @@ def lecun_normal_t(key: np.ndarray, shape: tuple[int, ...], device) -> torch.Ten
 
 
 def _flax_params(cfg) -> list[tuple[str, tuple[int, ...], str]]:
-    """The JAX MaskRCNN's parameters of ``cfg`` in the order of their
-    scopes: ('/'-joined flax path, shape in flax layout, initialiser), the
-    initialiser ``lecun``, ``normal:<stddev>``, ``zeros`` or ``ones``."""
+    """The JAX MaskRCNN's (or, for a C4 config, MaskRCNNC4's) parameters of
+    ``cfg`` in the order of their scopes: ('/'-joined flax path, shape in
+    flax layout, initialiser), the initialiser ``lecun``, ``normal:<stddev>``,
+    ``zeros`` or ``ones``."""
     from apse_uav_torch.dcnn.models.resnet import STAGE_BLOCKS
 
     out = []
@@ -278,14 +279,11 @@ def _flax_params(cfg) -> list[tuple[str, tuple[int, ...], str]]:
         out.extend([(f"{path}/scale", (ch,), "ones"), (f"{path}/bias", (ch,), "zeros"),
                     (f"{path}/mean", (ch,), "zeros"), (f"{path}/var", (ch,), "ones")])
 
-    rn = "backbone/resnet"
-    conv(f"{rn}/stem_conv", 7, 3, 64, bias=False)
-    bn(f"{rn}/stem_bn", 64)
-    in_ch = 64
-    for stage, n_blocks in enumerate(STAGE_BLOCKS[cfg.depth]):
-        out_ch, mid = 256 * 2**stage, 64 * 2**stage
-        for b in range(n_blocks):
-            p = f"{rn}/res{stage + 2}_{b}"
+    def stage(prefix, s):
+        out_ch, mid = 256 * 2**s, 64 * 2**s
+        in_ch = 64 if s == 0 else out_ch // 2
+        for b in range(STAGE_BLOCKS[cfg.depth][s]):
+            p = f"{prefix}/res{s + 2}_{b}"
             cin = in_ch if b == 0 else out_ch
             for i, (k, ci, co) in enumerate(((1, cin, mid), (3, mid, mid), (1, mid, out_ch)), start=1):
                 conv(f"{p}/conv{i}", k, ci, co, bias=False)
@@ -293,34 +291,48 @@ def _flax_params(cfg) -> list[tuple[str, tuple[int, ...], str]]:
             if b == 0:
                 conv(f"{p}/shortcut", 1, cin, out_ch, bias=False)
                 bn(f"{p}/shortcut_bn", out_ch)
-        in_ch = out_ch
-    ch = cfg.fpn_channels
-    for i, c in enumerate((256, 512, 1024, 2048)):
-        conv(f"backbone/fpn/lateral{i + 2}", 1, c, ch)
-        conv(f"backbone/fpn/output{i + 2}", 3, ch, ch)
-    a = len(cfg.anchors.aspect_ratios)
+
+    c4 = cfg.architecture == "c4"
+    rn = "backbone" if c4 else "backbone/resnet"
+    conv(f"{rn}/stem_conv", 7, 3, 64, bias=False)
+    bn(f"{rn}/stem_bn", 64)
+    for s in range(3 if c4 else 4):
+        stage(rn, s)
+    roi = cfg.roi
+    if c4:  # MaskRCNNC4: rpn_head on res4, res5 in the head, C4BoxPredictor, MaskHead(num_conv=0)
+        ch, a, head_in = 1024, cfg.anchors.num_cell_anchors, 2048
+        stage("res5", 3)
+        pred = "box_predictor"
+    else:
+        ch, a = cfg.fpn_channels, len(cfg.anchors.aspect_ratios)
+        for i, c in enumerate((256, 512, 1024, 2048)):
+            conv(f"backbone/fpn/lateral{i + 2}", 1, c, ch)
+            conv(f"backbone/fpn/output{i + 2}", 3, ch, ch)
+        pred = "box_head"
+        head_in = roi.box_fc_dim
     conv("rpn_head/conv", 3, ch, ch, init="normal:0.01")
     conv("rpn_head/objectness", 1, ch, a, init="normal:0.01")
     conv("rpn_head/deltas", 1, ch, 4 * a, init="normal:0.01")
-    roi = cfg.roi
-    dims = [ch * roi.box_pooler_resolution**2] + [roi.box_fc_dim] * roi.num_box_fc
-    for i in range(roi.num_box_fc):
-        out += [(f"box_head/fc{i + 1}/kernel", (dims[i], dims[i + 1]), "lecun"),
-                (f"box_head/fc{i + 1}/bias", (dims[i + 1],), "zeros")]
-    out += [("box_head/cls_score/kernel", (roi.box_fc_dim, roi.num_classes + 1), "normal:0.01"),
-            ("box_head/cls_score/bias", (roi.num_classes + 1,), "zeros"),
-            ("box_head/bbox_pred/kernel", (roi.box_fc_dim, 4 * roi.num_classes), "normal:0.001"),
-            ("box_head/bbox_pred/bias", (4 * roi.num_classes,), "zeros")]
+    if not c4:
+        dims = [ch * roi.box_pooler_resolution**2] + [roi.box_fc_dim] * roi.num_box_fc
+        for i in range(roi.num_box_fc):
+            out += [(f"box_head/fc{i + 1}/kernel", (dims[i], dims[i + 1]), "lecun"),
+                    (f"box_head/fc{i + 1}/bias", (dims[i + 1],), "zeros")]
+    out += [(f"{pred}/cls_score/kernel", (head_in, roi.num_classes + 1), "normal:0.01"),
+            (f"{pred}/cls_score/bias", (roi.num_classes + 1,), "zeros"),
+            (f"{pred}/bbox_pred/kernel", (head_in, 4 * roi.num_classes), "normal:0.001"),
+            (f"{pred}/bbox_pred/bias", (4 * roi.num_classes,), "zeros")]
     if cfg.mask_on:
-        for i in range(roi.num_mask_conv):
+        num_conv = 0 if c4 else roi.num_mask_conv
+        for i in range(num_conv):
             conv(f"mask_head/mask_fcn{i + 1}", 3, ch if i == 0 else roi.mask_conv_dim, roi.mask_conv_dim)
-        conv("mask_head/deconv", 2, roi.mask_conv_dim, roi.mask_conv_dim)
+        conv("mask_head/deconv", 2, roi.mask_conv_dim if num_conv else (2048 if c4 else ch), roi.mask_conv_dim)
         conv("mask_head/predictor", 1, roi.mask_conv_dim, roi.num_classes, init="normal:0.001")
     return out
 
 
 def mask_rcnn_init(cfg, seed: int = 0, device="cpu", only=None) -> dict[str, np.ndarray]:
-    """The JAX MaskRCNN of ``cfg`` initialised with ``PRNGKey(seed)``
+    """The JAX MaskRCNN (MaskRCNNC4 for a C4 config) of ``cfg`` initialised with ``PRNGKey(seed)``
     (``model.init`` under ``jax.jit``, as the reference's loop and CLIs
     call it), as the port's state dict of float32 numpy arrays
     (detectron2 names, through ``convert.mask_rcnn_state_dict``), drawn on

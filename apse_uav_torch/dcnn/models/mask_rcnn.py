@@ -15,11 +15,16 @@ returns float32, and the box head computes in float32 on inputs rounded to
 the head dtype.  Nothing is cast at the end: bf16 outputs meet float32
 anchors and boxes under the reference's promotion rules, so in bfloat16 the
 proposal scores and the masks come out bfloat16, the boxes float32.  The C4
-architecture raises, naming ``ROADMAP.md``.
+architecture is :class:`~apse_uav_torch.dcnn.models.c4.MaskRCNNC4`;
+``c4.build_model`` picks the class of a config.
 
 ``losses`` is the reference's training mode: every head output that a loss
 reads is cast to float32 first, and each loss is the mean over the images of
-the per-image losses.
+the per-image losses.  This is also the reference's shipped bf16 training
+regime (``compute_dtype="bfloat16"``, ``head_compute_dtype="float32"``):
+float32 parameters, a bfloat16 backbone, float32 heads and float32 at the
+loss boundary.  ``roi_features`` is the COWC ROI-feature mode (backbone,
+box pooler and the box head's FC trunk on given boxes).
 """
 
 from __future__ import annotations
@@ -40,13 +45,21 @@ RPN_LEVELS = ("p2", "p3", "p4", "p5", "p6")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on the parts of a ModelConfig the port does not run yet."""
-    if cfg.architecture != "fpn":
-        raise NotImplementedError(f"architecture={cfg.architecture!r}: the C4 model (Res5Stage) is not ported "
-                                  "yet (ROADMAP.md, item 9)")
+    """Raise on a ModelConfig the port does not run: an unknown architecture or compute dtype."""
+    if cfg.architecture not in ("fpn", "c4"):
+        raise ValueError(f"architecture={cfg.architecture!r}: use 'fpn' or 'c4'")
     for field in ("compute_dtype", "head_compute_dtype"):
         if getattr(cfg, field) not in ("float32", "bfloat16", ""):
             raise ValueError(f"{field}={getattr(cfg, field)!r}: use 'float32' or 'bfloat16'")
+
+
+def image_keys(key, b: int, per_image: int) -> np.ndarray:
+    """The training keys of a batch of ``b`` images: ``split(key, per_image * b)``
+    of a (2,) uint32 key, whose first b sample the anchors and next b the
+    proposals; a (k, 2) ``key`` is taken as that split already (a
+    data-parallel rank's rows of the whole batch's split)."""
+    key = np.asarray(key, np.uint32)
+    return key if key.ndim == 2 else flax_init.split(key, per_image * b)
 
 
 def compute_dtypes(cfg: ModelConfig) -> tuple[torch.dtype, torch.dtype]:
@@ -78,9 +91,13 @@ class MaskRCNN(nn.Module):
         dets, feats = model.inference(images)   # images (B, H, W, 3) f32 BGR
     """
 
+    keys_per_image = 3  # the reference splits a step's key into 3B
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         check_supported(cfg)
+        if cfg.architecture != "fpn":
+            raise ValueError(f"architecture={cfg.architecture!r} is not MaskRCNN's: build it with c4.build_model")
         self.cfg = cfg
         dtype, head_dtype = compute_dtypes(cfg)
         self.backbone = ResNetFPN(cfg.depth, cfg.fpn_channels, cfg.stride_in_1x1, dtype)
@@ -95,11 +112,15 @@ class MaskRCNN(nn.Module):
         res2..res5 and p2..p6 maps (the reference's ``backbone`` mode)."""
         return self.backbone((images - self.pixel_mean) / self.pixel_std)
 
-    def proposals(self, feats: dict[str, torch.Tensor], image_hw: tuple[int, int]):
-        """RPN head + proposal selection -> (boxes (B, P, 4), scores (B, P), valid (B, P))."""
+    def proposals(self, feats: dict[str, torch.Tensor], image_hw: tuple[int, int],
+                  levels: tuple[str, ...] | None = None):
+        """RPN head + proposal selection -> (boxes (B, P, 4), scores (B, P),
+        valid (B, P)); ``levels`` restricts the proposing levels
+        (:func:`~apse_uav_torch.dcnn.models.rpn.select_proposals`)."""
         logits, deltas = self.proposal_generator["rpn_head"]({n: feats[n] for n in RPN_LEVELS})
         level_shapes = {n: tuple(feats[n].shape[1:3]) for n in RPN_LEVELS}
-        return select_proposals(logits, deltas, level_shapes, image_hw, self.cfg.anchors, self.cfg.rpn)
+        return select_proposals(logits, deltas, level_shapes, image_hw, self.cfg.anchors, self.cfg.rpn,
+                                levels=levels)
 
     @torch.no_grad()
     def training_proposals(self, images: torch.Tensor, features: dict | None = None):
@@ -122,7 +143,7 @@ class MaskRCNN(nn.Module):
         (B, G) and, with masks, masks (B, G, Hm, Wm) (full-image masks at
         image resolution or a multiple of it); key (2,) uint32, split into
         3B keys: the first B sample each image's anchors, the next B its
-        proposals.  ``gt_proposals`` feeds the GT boxes to the ROI heads in
+        proposals (or that split itself, :func:`image_keys`).  ``gt_proposals`` feeds the GT boxes to the ROI heads in
         place of the RPN's proposals (no RPN losses).  ``freeze_backbone``
         computes the features under ``no_grad``: the reference's
         ``stop_gradient``, with no convolution or ROIAlign backward.  Returns
@@ -153,7 +174,7 @@ class MaskRCNN(nn.Module):
         mark("features")
         image_hw = tuple(images.shape[1:3])
         b = images.shape[0]
-        keys = flax_init.split(np.asarray(key, np.uint32), 3 * b)
+        keys = image_keys(key, b, self.keys_per_image)
         if gt_proposals:
             losses = {}
             boxes, valid = gt["boxes"], gt["valid"]
@@ -217,10 +238,23 @@ class MaskRCNN(nn.Module):
         return det
 
     @torch.no_grad()
-    def inference(self, images: torch.Tensor):
+    def inference(self, images: torch.Tensor, rpn_levels: tuple[str, ...] | None = None):
         """images (B, H, W, 3) -> (detections, backbone maps); detections as
-        :meth:`detect` returns them."""
+        :meth:`detect` returns them.  ``rpn_levels`` restricts the proposing
+        levels (the reference's SelectiveMaskRCNN scan uses only p6)."""
         image_hw = tuple(images.shape[1:3])
         feats = self.features(images)
-        boxes, _, valid = self.proposals(feats, image_hw)
+        boxes, _, valid = self.proposals(feats, image_hw, rpn_levels)
         return self.detect(feats, boxes, valid, image_hw), feats
+
+    @torch.no_grad()
+    def roi_features(self, images: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """The COWC ROI-feature precompute (the reference's ``roi_features``
+        mode): backbone, box pooler and the box head's FC trunk on the given
+        boxes (B, N, 4) xyxy, no RPN and no predictors -> (B, N, fc_dim) float32."""
+        feats = self.features(images)
+        nb, n = boxes.shape[:2]
+        roi = self.cfg.roi
+        pooled = fpn_roi_align({k: feats[k] for k in POOL_LEVELS}, boxes, roi.box_pooler_resolution,
+                               roi.pooler_sampling_ratio)
+        return self.roi_heads.box_head(pooled.reshape(nb * n, -1)).reshape(nb, n, -1)

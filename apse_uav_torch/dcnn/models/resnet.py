@@ -110,27 +110,58 @@ class Stem(nn.Module):
         return F.max_pool2d(F.relu(self.conv1(x)), 3, 2, 1)
 
 
-class ResNet(nn.Module):
-    """Bottom-up trunk: NCHW input -> {"res2": (B, 256, H/4, W/4), ..., "res5": (B, 2048, H/32, W/32)}."""
+def stage_blocks(depth: int, stage: int, stride_in_1x1: bool) -> nn.Sequential:
+    """ResNet stage ``stage`` (0 = res2 ... 3 = res5): its bottlenecks, the
+    first with the shortcut and (from res3 on) stride 2."""
+    out_ch, mid_ch = 256 * 2**stage, 64 * 2**stage
+    in_ch = 64 if stage == 0 else out_ch // 2
+    return nn.Sequential(*[Bottleneck(in_ch if b == 0 else out_ch, out_ch, mid_ch,
+                                      (1 if stage == 0 else 2) if b == 0 else 1, stride_in_1x1)
+                           for b in range(STAGE_BLOCKS[depth][stage])])
 
-    def __init__(self, depth: int = 50, stride_in_1x1: bool = True):
+
+class ResNet(nn.Module):
+    """Bottom-up trunk: NCHW input -> {"res2": (B, 256, H/4, W/4), ..., "res5": (B, 2048, H/32, W/32)}.
+
+    ``max_stage`` truncates the trunk: the C4 backbone (Base-RCNN-C4.yaml)
+    ends at res4 and runs res5 in its ROI head (:class:`Res5Stage`)."""
+
+    def __init__(self, depth: int = 50, stride_in_1x1: bool = True, max_stage: int = 5):
         super().__init__()
         self.stem = Stem()
-        in_ch = 64
-        for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
-            out_ch, mid_ch = 256 * 2**stage, 64 * 2**stage
-            blocks = [Bottleneck(in_ch if b == 0 else out_ch, out_ch, mid_ch, (1 if stage == 0 else 2) if b == 0 else 1,
-                                 stride_in_1x1) for b in range(n_blocks)]
-            self.add_module(f"res{stage + 2}", nn.Sequential(*blocks))
-            in_ch = out_ch
+        self.names = [f"res{stage + 2}" for stage in range(max_stage - 1)]
+        for stage, name in enumerate(self.names):
+            self.add_module(name, stage_blocks(depth, stage, stride_in_1x1))
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         x = self.stem(x)
         outs = {}
-        for name in ("res2", "res3", "res4", "res5"):
+        for name in self.names:
             x = getattr(self, name)(x)
             outs[name] = x
         return outs
+
+
+class Res5Stage(nn.Sequential):
+    """The res5 stage alone, the C4 ROI head's shared transform (detectron2
+    ``Res5ROIHeads.res5``): pooled (N, 1024, 14, 14) ROI features -> (N,
+    2048, 7, 7) through the stride-2 first block, computed in ``dtype`` (the
+    backbone's compute dtype, as in the reference)."""
+
+    def __init__(self, depth: int = 50, stride_in_1x1: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(*stage_blocks(depth, 3, stride_in_1x1))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        return super().forward(x.contiguous(memory_format=memory_format(self.dtype)))
+
+
+def memory_format(dtype: torch.dtype) -> torch.memory_format:
+    """``channels_last`` in bfloat16 (the layout of the card's bf16
+    tensor-core convolutions), else NCHW (cuDNN's float32 kernels take it;
+    ``channels_last`` made them transpose around every convolution)."""
+    return torch.channels_last if dtype == torch.bfloat16 else torch.contiguous_format
 
 
 class FPN(nn.Module):
@@ -169,7 +200,6 @@ class ResNetFPN(FPN):
 
     def forward(self, x_nhwc: torch.Tensor) -> dict[str, torch.Tensor]:
         x = x_nhwc.permute(0, 3, 1, 2).to(self.dtype)
-        x = x.contiguous(memory_format=torch.channels_last if self.dtype == torch.bfloat16 else torch.contiguous_format)
-        res = self.bottom_up(x)
+        res = self.bottom_up(x.contiguous(memory_format=memory_format(self.dtype)))
         maps = {**res, **self.pyramid(res)}
         return {k: v.permute(0, 2, 3, 1) for k, v in maps.items()}

@@ -9,7 +9,8 @@ detectron2 names them (``roi_heads.box_head.fc1``,
 ``roi_heads.box_predictor.cls_score``).  The training functions
 (``match_proposals_to_gt``, the box and mask losses, the GT mask targets)
 are the reference's, batched over images: each returns one loss per image.
-``paste_masks`` is not ported (the tracker pastes masks its own way).
+``paste_masks`` pastes mask probabilities into full-image masks (the
+tracker pastes its own way, ``tracker.paste_mask_lowres``).
 """
 
 from __future__ import annotations
@@ -143,7 +144,8 @@ class BoxPredictor(nn.Module):
 
 class MaskHead(nn.Module):
     """MaskRCNNConvUpsampleHead: ``num_conv`` 3x3 ReLU convolutions, a 2x2/2
-    transposed convolution + ReLU, a 1x1 predictor.  (N, C, R, R) -> mask
+    transposed convolution + ReLU, a 1x1 predictor (C4: no convolution, the
+    transposed one on the 2048-channel res5 features).  (N, C, R, R) -> mask
     logits (N, K, 2R, 2R), computed and returned in ``dtype`` (the head
     compute dtype)."""
 
@@ -154,7 +156,7 @@ class MaskHead(nn.Module):
         self.dtype = dtype
         for i in range(num_conv):
             self.add_module(f"mask_fcn{i + 1}", nn.Conv2d(in_ch if i == 0 else conv_dim, conv_dim, 3, padding=1))
-        self.deconv = nn.ConvTranspose2d(conv_dim, conv_dim, 2, stride=2)
+        self.deconv = nn.ConvTranspose2d(conv_dim if num_conv else in_ch, conv_dim, 2, stride=2)
         self.predictor = nn.Conv2d(conv_dim, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -286,3 +288,30 @@ def crop_resize_masks(masks: torch.Tensor, matched: torch.Tensor, boxes: torch.T
     yi = ys.to(torch.int64).clamp(0, h - 1)
     bi = torch.arange(masks.shape[0], device=masks.device)[:, None, None, None]
     return masks[bi, matched[..., None, None], yi[..., :, None], xi[..., None, :]]
+
+
+def paste_masks(mask_probs: torch.Tensor, boxes: torch.Tensor, image_hw: tuple[int, int],
+                threshold: float = 0.5) -> torch.Tensor:
+    """(N, R, R) mask probabilities pasted into (N, H, W) boolean full-image
+    masks, the reference's ``paste_masks`` (detectron2 paste_masks_in_image
+    semantics: image pixel centres mapped into each box's mask cells,
+    bilinear between the clamped neighbours, 0 outside the band (-1, R))."""
+    h, w = image_hw
+    n, r = mask_probs.shape[:2]
+    dev = mask_probs.device
+    x1, y1, x2, y2 = (boxes[:, i:i + 1] for i in range(4))
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5 - x1) / (x2 - x1).clamp(min=1e-4) * r - 0.5
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5 - y1) / (y2 - y1).clamp(min=1e-4) * r - 0.5
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    lx, ly = (xs - x0)[:, None, :], (ys - y0)[:, :, None]
+    x0i = x0.to(torch.int64).clamp(0, r - 1)
+    y0i = y0.to(torch.int64).clamp(0, r - 1)
+    x1i, y1i = (x0i + 1).clamp(0, r - 1), (y0i + 1).clamp(0, r - 1)
+    rows = torch.arange(n, device=dev)[:, None, None]
+
+    def at(yi, xi):
+        return mask_probs[rows, yi[:, :, None], xi[:, None, :]]
+
+    val = (at(y0i, x0i) * (1 - lx) + at(y0i, x1i) * lx) * (1 - ly) + (at(y1i, x0i) * (1 - lx) + at(y1i, x1i) * lx) * ly
+    inside = ((ys > -1.0) & (ys < r))[:, :, None] & ((xs > -1.0) & (xs < r))[:, None, :]
+    return torch.where(inside, val, 0.0) >= threshold

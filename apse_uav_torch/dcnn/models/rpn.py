@@ -31,7 +31,8 @@ from apse_uav_torch.dcnn.models.resnet import conv
 from apse_uav_torch.dcnn.ops import apply_deltas, box_iou, clip_boxes, get_deltas, nonempty
 from apse_uav_torch.dcnn.ops.nms import descending_order, nms_mask
 
-LEVEL_STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64}
+# The C4 backbone's RPN runs on the single res4 map (stride 16).
+LEVEL_STRIDES = {"p2": 4, "p3": 8, "p4": 16, "p5": 32, "p6": 64, "res4": 16}
 
 
 def cell_anchors(size, aspect_ratios: Sequence[float]) -> np.ndarray:
@@ -100,7 +101,8 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def select_proposals(logits: dict[str, torch.Tensor], deltas: dict[str, torch.Tensor],
                      level_shapes: dict[str, tuple[int, int]], image_hw: tuple[int, int],
-                     anchor_cfg: AnchorConfig, rpn_cfg: RPNConfig, training: bool = False):
+                     anchor_cfg: AnchorConfig, rpn_cfg: RPNConfig, training: bool = False,
+                     levels: tuple[str, ...] | None = None):
     """Fixed-shape find_top_rpn_proposals for a batch.
 
     logits[level] (B, N_l), deltas[level] (B, N_l, 4).  Returns (boxes (B, P, 4),
@@ -109,6 +111,9 @@ def select_proposals(logits: dict[str, torch.Tensor], deltas: dict[str, torch.Te
     order).  bfloat16 logits stay bfloat16 (so do the scores, ranked as they
     are); the boxes come out float32, bf16 deltas meeting float32 anchors.  Levels run together: each level's candidates are padded to the
     largest budget with invalid entries, which neither suppress nor survive.
+    ``levels``, if given, are the only levels that propose; the anchors stay
+    those of each level's place among all of them (the reference's
+    SelectiveRPN keeps only the coarsest level's proposals).
     """
     pre_k = rpn_cfg.pre_nms_topk_train if training else rpn_cfg.pre_nms_topk_test
     post_k = rpn_cfg.post_nms_topk_train if training else rpn_cfg.post_nms_topk_test
@@ -116,6 +121,8 @@ def select_proposals(logits: dict[str, torch.Tensor], deltas: dict[str, torch.Te
     dev = logits[names[0]].device
     level_boxes, level_scores, level_valid = [], [], []
     for i, name in enumerate(names):
+        if levels is not None and name not in levels:
+            continue
         anchors = grid_anchors(tuple(level_shapes[name]), LEVEL_STRIDES[name], anchor_cfg.sizes[i],
                                tuple(anchor_cfg.aspect_ratios), anchor_cfg.offset, str(dev))
         k = min(pre_k, logits[name].shape[1])

@@ -19,8 +19,14 @@ from __future__ import annotations
 import torch
 
 
-def bilinear_gather_hwc(feat_hwc: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """feat (H, W, C); ys/xs (S,) sample coordinates -> (S, C)."""
+def bilinear_gather_hwc(feat_hwc: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                        plane: torch.Tensor | None = None) -> torch.Tensor:
+    """feat (H, W, C); ys/xs (S,) sample coordinates -> (S, C).
+
+    ``plane`` (H, W), if given, scales the features texel by texel: the
+    result is that of ``feat * plane[..., None]``, computed as the reference
+    does, by gathering the plane at the same taps and scaling each tap's
+    weight (no (H, W, C) product is made)."""
     h, w, c = feat_hwc.shape
     out_of_range = (ys < -1.0) | (ys > h * 1.0) | (xs < -1.0) | (xs > w * 1.0)
     y = ys.clamp(0.0, h - 1.0)
@@ -35,6 +41,9 @@ def bilinear_gather_hwc(feat_hwc: torch.Tensor, ys: torch.Tensor, xs: torch.Tens
     flat = feat_hwc.reshape(h * w, c)
     idx = (y0i * w + x0i, y0i * w + x1i, y1i * w + x0i, y1i * w + x1i)
     wts = [(1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx), ly * lx]
+    if plane is not None:
+        pf = plane.reshape(-1)
+        wts = [wt * pf[i] for wt, i in zip(wts, idx)]
     val = flat[idx[0]] * wts[0][:, None]
     for i, wt in zip(idx[1:], wts[1:]):
         val = val + flat[i] * wt[:, None]
@@ -48,10 +57,10 @@ def sample_grid(n: int, s: int, device) -> torch.Tensor:
 
 
 def roi_align_hwc(feat_hwc: torch.Tensor, boxes: torch.Tensor, output_size, spatial_scale: float = 1.0,
-                  sampling_ratio: int = 2, aligned: bool = False) -> torch.Tensor:
+                  sampling_ratio: int = 2, aligned: bool = False, plane: torch.Tensor | None = None) -> torch.Tensor:
     """feat (H, W, C), boxes (N, 4) xyxy in image coordinates -> (N, C, oh, ow).
-    (The reference's ``plane`` modulation is not ported: the tracker crops
-    its features by mask in :func:`~apse_uav_torch.dcnn.tracker.detection_embeddings`.)"""
+    ``plane`` (H, W) optionally scales the features texel by texel: exactly
+    ROIAlign of ``feat * plane[..., None]`` (see :func:`bilinear_gather_hwc`)."""
     oh, ow = (output_size, output_size) if isinstance(output_size, int) else output_size
     s = max(int(sampling_ratio), 1)
     offset = 0.5 if aligned else 0.0
@@ -72,7 +81,7 @@ def roi_align_hwc(feat_hwc: torch.Tensor, boxes: torch.Tensor, output_size, spat
     xs = x1[:, None] + sample_grid(ow, s, boxes.device)[None, :] * bin_w[:, None]  # (N, ow*s)
     yy = ys[:, :, None].expand(n, oh * s, ow * s).reshape(-1)
     xx = xs[:, None, :].expand(n, oh * s, ow * s).reshape(-1)
-    vals = bilinear_gather_hwc(feat_hwc, yy, xx)  # (N*S, C)
+    vals = bilinear_gather_hwc(feat_hwc, yy, xx, plane)  # (N*S, C)
     vals = vals.reshape(n, oh, s, ow, s, c).mean(dim=(2, 4))  # (N, oh, ow, C)
     return vals.permute(0, 3, 1, 2)
 

@@ -1,4 +1,5 @@
-"""Device resolution: CUDA unless the caller asks for the CPU, never a fallback."""
+"""Device resolution (CUDA unless the caller asks for the CPU, never a
+fallback) and waiting for a device."""
 
 from __future__ import annotations
 
@@ -23,3 +24,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device`` to finish its queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

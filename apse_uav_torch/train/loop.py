@@ -38,6 +38,7 @@ import torch
 from apse_uav_torch.dcnn import flax_init, weights
 from apse_uav_torch.dcnn.config import ModelConfig
 from apse_uav_torch.dcnn.models.association import AssociationHead, init_weights
+from apse_uav_torch.dcnn.models.c4 import build_model
 from apse_uav_torch.dcnn.models.mask_rcnn import MaskRCNN
 from apse_uav_torch.device import resolve_device
 from apse_uav_torch.evaluation.coco_eval import CocoEvaluator
@@ -133,10 +134,11 @@ def evaluate_detector(model: MaskRCNN, eval_batches: Iterable, max_images: int |
 
 
 def build_detector(model_cfg: ModelConfig, init_params: dict | None, seed: int, device) -> MaskRCNN:
-    """The MaskRCNN on ``device`` with ``init_params`` (a state dict), or the
-    reference's flax init under ``PRNGKey(seed)`` when None."""
+    """The model of ``model_cfg`` (``build_model``: R-FPN or C4) on
+    ``device`` with ``init_params`` (a state dict), or the reference's flax
+    init under ``PRNGKey(seed)`` when None."""
     dev = resolve_device(device)
-    model = MaskRCNN(model_cfg)
+    model = build_model(model_cfg)
     if init_params is None:
         init_params = flax_init.mask_rcnn_init(model_cfg, seed, dev)
     weights.load_detectron2(model, init_params)
@@ -147,12 +149,16 @@ def finetune_detector(model_cfg: ModelConfig, train_batches: Iterable, eval_batc
                       workdir: str, max_iter: int = 1000, to_train=("proposal_generator", "roi_heads"),
                       lr: float = 0.02, test_period: int = 50, init_params: dict | None = None, resume: bool = True,
                       seed: int = 0, log_fn: Callable[[str], None] = print, device="cuda",
-                      on_step: Callable[[int, dict], None] | None = None) -> MaskRCNN:
+                      on_step: Callable[[int, dict], None] | None = None,
+                      gt_proposals: bool = False) -> MaskRCNN:
     """Fine-tune on ``train_batches`` ((images (B, H, W, 3) f32, gt dict of
     numpy arrays), as :class:`~apse_uav_torch.data.loader.DetectionLoader`
     yields them); returns the trained model.  Checkpoints and
     ``results.txt`` land in ``workdir``.  ``on_step(iteration, losses)``, if
-    given, sees each step's loss tensors (a test's or a benchmark's hook)."""
+    given, sees each step's loss tensors (a test's or a benchmark's hook).
+    ``gt_proposals`` trains the ROI heads on the GT boxes in place of the
+    RPN's proposals (``finetune_segmentation``'s regime; the reference's CLI
+    swaps the step for one that does so)."""
     dev = resolve_device(device)
     model = build_detector(model_cfg, init_params, seed, dev)
     tensors = model.state_dict(keep_vars=True)
@@ -194,7 +200,7 @@ def finetune_detector(model_cfg: ModelConfig, train_batches: Iterable, eval_batc
             key, sub = flax_init.split(key)
             if iteration + 1 < max_iter:
                 feed.start()
-            losses = detector_train_step(model, opt, images, gt, sub, freeze_backbone)
+            losses = detector_train_step(model, opt, images, gt, sub, freeze_backbone, gt_proposals=gt_proposals)
             iteration += 1
             if on_step is not None:
                 on_step(iteration, losses)

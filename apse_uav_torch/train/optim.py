@@ -17,13 +17,17 @@ trainable tensors only (the others are never touched):
 
 Everything stays on the parameters' device: no host sync.
 
-Labels follow the reference's submodule selection, mapped to the port's
-detectron2 names.  The reference's ``box_head`` holds the class and box
-predictors, which the port keeps in ``roi_heads.box_predictor``: that module
-belongs to ``box_head`` and to ``roi_heads``.  Only the frozen-BN statistics
-(``running_mean`` / ``running_var``, the reference's ``mean`` / ``var``) are
-always frozen; the frozen-BN ``weight`` / ``bias`` train with the backbone,
-as in the reference's code (its module docstring says otherwise).
+Labels follow the reference's submodule selection: each name picks top-level
+modules of the JAX model (``roi_heads`` is its ``box_head`` and
+``mask_head``), and each port tensor belongs to the JAX module that holds its
+counterpart.  In R-FPN the reference's ``box_head`` holds the class and box
+predictors, which the port keeps in ``roi_heads.box_predictor``; in C4
+(``MaskRCNNC4``) the predictor and ``res5`` are top-level modules of their
+own, so ``roi_heads`` trains only the mask head there, as in the reference.
+Only the frozen-BN statistics (``running_mean`` / ``running_var``, the
+reference's ``mean`` / ``var``) are always frozen; the frozen-BN ``weight`` /
+``bias`` train with the backbone, as in the reference's code (its module
+docstring says otherwise).
 """
 
 from __future__ import annotations
@@ -33,22 +37,35 @@ from typing import Callable, Sequence
 import torch
 
 # Reference submodule names (build_finetune_optimizer(to_train=[...])) -> the
-# port's state-dict prefixes.
-SUBMODULE_PREFIXES = {
-    "backbone": ("backbone.",),
-    "proposal_generator": ("proposal_generator.",),
-    "roi_heads": ("roi_heads.box_head.", "roi_heads.box_predictor.", "roi_heads.mask_head."),
-    "mask_head": ("roi_heads.mask_head.",),
-    "box_head": ("roi_heads.box_head.", "roi_heads.box_predictor."),
+# JAX model's top-level modules they train.
+SUBMODULES = {
+    "backbone": ("backbone",),
+    "proposal_generator": ("rpn_head",),
+    "roi_heads": ("box_head", "mask_head"),
+    "mask_head": ("mask_head",),
+    "box_head": ("box_head",),
 }
 FROZEN_LEAVES = ("running_mean", "running_var")
 
 
+def reference_module(name: str, c4: bool) -> str:
+    """The JAX model's top-level module that holds the counterpart of the
+    port's tensor ``name`` (R-FPN, or C4 when ``c4``)."""
+    if name.startswith("backbone."):
+        return "backbone"
+    if name.startswith("proposal_generator."):
+        return "rpn_head"
+    part = name.split(".")[1]  # roi_heads.<box_head|box_predictor|mask_head|res5>
+    return "box_head" if part == "box_predictor" and not c4 else part
+
+
 def param_labels(names: Sequence[str], to_train: Sequence[str]) -> dict[str, str]:
-    """'train' or 'frozen' for each state-dict name."""
-    prefixes = tuple(p for name in to_train for p in SUBMODULE_PREFIXES[name])
-    return {n: "train" if n.startswith(prefixes) and n.rsplit(".", 1)[-1] not in FROZEN_LEAVES else "frozen"
-            for n in names}
+    """'train' or 'frozen' for each state-dict name, of an R-FPN or (names
+    under ``roi_heads.res5``) a C4 model."""
+    modules = {m for name in to_train for m in SUBMODULES[name]}
+    c4 = any(n.startswith("roi_heads.res5.") for n in names)
+    return {n: "train" if reference_module(n, c4) in modules and n.rsplit(".", 1)[-1] not in FROZEN_LEAVES
+            else "frozen" for n in names}
 
 
 def warmup_multistep_schedule(base_lr: float, steps: Sequence[int], warmup_iters: int = 1000,

@@ -25,7 +25,8 @@ def trainable_only(tensors: list[torch.Tensor], all_tensors) -> None:
 
 def detector_train_step(model: MaskRCNN, opt: SGD, images: torch.Tensor, gt: dict[str, torch.Tensor],
                         key: np.ndarray, freeze_backbone: bool = False, mark=None, proposals=None,
-                        features: dict | None = None) -> dict[str, torch.Tensor]:
+                        features: dict | None = None, gt_proposals: bool = False,
+                        reduce_grads=None) -> dict[str, torch.Tensor]:
     """One SGD step on the full detector loss (finetune_uav.py:231-246).
 
     Pass ``freeze_backbone=True`` when the optimizer leaves the backbone out
@@ -34,13 +35,21 @@ def detector_train_step(model: MaskRCNN, opt: SGD, images: torch.Tensor, gt: dic
     ``loss_total`` (tensors on the device; reading them is the caller's sync).
     ``mark(stage)``, if given, is called as each stage ends: the three of
     ``MaskRCNN.losses``, then "backward" and "optimizer".  ``proposals``,
-    ``features``: as ``MaskRCNN.losses`` takes them.
+    ``features``, ``gt_proposals``: as ``MaskRCNN.losses`` takes them.
+    ``model`` is a MaskRCNN or a MaskRCNNC4, in float32 or the reference's
+    bf16 regime (its config's compute dtypes; the parameters, the gradients
+    and the update stay float32).  ``reduce_grads(grads, params)``, if
+    given, maps the gradients before the update (the data-parallel step's
+    mean over ranks, :mod:`apse_uav_torch.parallel.dp`); ``key`` may then be
+    the rank's rows of the whole batch's key split.
     """
-    losses = model.losses(images, gt, key, freeze_backbone=freeze_backbone, mark=mark, proposals=proposals,
-                          features=features)
+    losses = model.losses(images, gt, key, gt_proposals=gt_proposals, freeze_backbone=freeze_backbone, mark=mark,
+                          proposals=proposals, features=features)
     total = sum(losses.values())
     params = opt.trainable()
     grads = torch.autograd.grad(total, params, allow_unused=True)
+    if reduce_grads is not None:
+        grads = reduce_grads(grads, params)
     if mark:
         mark("backward")
     opt.step(grads)

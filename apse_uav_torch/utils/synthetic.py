@@ -171,11 +171,14 @@ CLS_BG_BIAS = 4.0
 MASK_BIAS = 5.0
 
 
-def detectron2_checkpoint(seed: int, depth: int, num_classes: int, mask_on: bool = True) -> dict[str, np.ndarray]:
+def detectron2_checkpoint(seed: int, depth: int, num_classes: int, mask_on: bool = True,
+                          architecture: str = "fpn") -> dict[str, np.ndarray]:
     """A detectron2 GeneralizedRCNN (Mask R-CNN R-FPN, the model zoo's widths:
-    256 FPN channels, 3 anchors a cell, 7x7 box pooling, 1024-d box head)
-    state dict of float32 numpy arrays, drawn with
-    ``numpy.random.default_rng(seed)``.
+    256 FPN channels, 3 anchors a cell, 7x7 box pooling, 1024-d box head; or,
+    with ``architecture="c4"``, R-C4: the trunk to res4, a 1024-channel RPN
+    with 15 anchors a cell, res5 in the ROI heads, the predictor on 2048
+    channels and a mask head of one transposed convolution) state dict of
+    float32 numpy arrays, drawn with ``numpy.random.default_rng(seed)``.
 
     Its statistics keep a deep trunk finite and O(1) and its outputs decisive,
     so that two implementations agree on every discrete choice:
@@ -193,7 +196,8 @@ def detectron2_checkpoint(seed: int, depth: int, num_classes: int, mask_on: bool
       so boxes move little with rounding.
     """
     rng = np.random.default_rng(seed)
-    fpn_channels, fc_dim, num_anchors, box_res = 256, 1024, 3, 7
+    c4 = architecture == "c4"
+    fpn_channels, fc_dim, num_anchors, box_res = (1024, 2048, 15, 14) if c4 else (256, 1024, 3, 7)
 
     def normal(shape, std):
         return (rng.standard_normal(shape) * std).astype(np.float32)
@@ -215,14 +219,15 @@ def detectron2_checkpoint(seed: int, depth: int, num_classes: int, mask_on: bool
         out[f"{prefix}.running_mean"] = normal(ch, 0.1 * np.sqrt(var_scale))
         out[f"{prefix}.running_var"] = (var_scale * rng.uniform(0.5, 1.5, ch)).astype(np.float32)
 
-    bb = "backbone.bottom_up"
+    bb = "backbone" if c4 else "backbone.bottom_up"
     out[f"{bb}.stem.conv1.weight"] = conv(64, 3, 7)
     bn(f"{bb}.stem.conv1.norm", 64, var_scale=64.0**2)
     in_ch = 64
     for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
         out_ch, mid = 256 * 2**stage, 64 * 2**stage
+        owner = "roi_heads" if c4 and stage == 3 else bb  # C4: res5 is the ROI heads' transform
         for b in range(n_blocks):
-            p = f"{bb}.res{stage + 2}.{b}"
+            p = f"{owner}.res{stage + 2}.{b}"
             cin = in_ch if b == 0 else out_ch
             for name, (o, i, k) in (("conv1", (mid, cin, 1)), ("conv2", (mid, mid, 3)), ("conv3", (out_ch, mid, 1))):
                 out[f"{p}.{name}.weight"] = conv(o, i, k)
@@ -231,7 +236,7 @@ def detectron2_checkpoint(seed: int, depth: int, num_classes: int, mask_on: bool
                 out[f"{p}.shortcut.weight"] = conv(out_ch, cin, 1, gain=1.0)
                 bn(f"{p}.shortcut.norm", out_ch)
         in_ch = out_ch
-    for i, c in enumerate((256, 512, 1024, 2048)):
+    for i, c in enumerate(() if c4 else (256, 512, 1024, 2048)):
         out[f"backbone.fpn_lateral{i + 2}.weight"] = conv(fpn_channels, c, 1, gain=1.0)
         out[f"backbone.fpn_lateral{i + 2}.bias"] = normal(fpn_channels, 0.1)
         out[f"backbone.fpn_output{i + 2}.weight"] = conv(fpn_channels, fpn_channels, 3, gain=0.25)
@@ -243,23 +248,25 @@ def detectron2_checkpoint(seed: int, depth: int, num_classes: int, mask_on: bool
     out[f"{rpn}.objectness_logits.bias"] = np.zeros(num_anchors, np.float32)
     out[f"{rpn}.anchor_deltas.weight"] = normal((4 * num_anchors, fpn_channels, 1, 1), 0.02 / np.sqrt(fpn_channels))
     out[f"{rpn}.anchor_deltas.bias"] = np.zeros(4 * num_anchors, np.float32)
-    in_dim = fpn_channels * box_res * box_res
-    out["roi_heads.box_head.fc1.weight"] = normal((fc_dim, in_dim), np.sqrt(2.0 / in_dim))
-    out["roi_heads.box_head.fc1.bias"] = np.zeros(fc_dim, np.float32)
-    out["roi_heads.box_head.fc2.weight"] = normal((fc_dim, fc_dim), np.sqrt(2.0 / fc_dim))
-    out["roi_heads.box_head.fc2.bias"] = np.zeros(fc_dim, np.float32)
+    if not c4:  # C4's predictor reads the 7x7 mean of res5: no FC trunk
+        in_dim = fpn_channels * box_res * box_res
+        out["roi_heads.box_head.fc1.weight"] = normal((fc_dim, in_dim), np.sqrt(2.0 / in_dim))
+        out["roi_heads.box_head.fc1.bias"] = np.zeros(fc_dim, np.float32)
+        out["roi_heads.box_head.fc2.weight"] = normal((fc_dim, fc_dim), np.sqrt(2.0 / fc_dim))
+        out["roi_heads.box_head.fc2.bias"] = np.zeros(fc_dim, np.float32)
     out["roi_heads.box_predictor.cls_score.weight"] = centred((num_classes + 1, fc_dim), 2.0 / np.sqrt(fc_dim))
     out["roi_heads.box_predictor.cls_score.bias"] = np.asarray([0.0] * num_classes + [CLS_BG_BIAS], np.float32)
     out["roi_heads.box_predictor.bbox_pred.weight"] = normal((4 * num_classes, fc_dim), 0.1 / np.sqrt(fc_dim))
     out["roi_heads.box_predictor.bbox_pred.bias"] = np.zeros(4 * num_classes, np.float32)
     if mask_on:
-        mh = "roi_heads.mask_head"
-        for i in range(1, 5):
-            out[f"{mh}.mask_fcn{i}.weight"] = conv(fpn_channels, fpn_channels, 3)
-            out[f"{mh}.mask_fcn{i}.bias"] = np.zeros(fpn_channels, np.float32)
-        out[f"{mh}.deconv.weight"] = normal((fpn_channels, fpn_channels, 2, 2), np.sqrt(2.0 / fpn_channels))
-        out[f"{mh}.deconv.bias"] = np.zeros(fpn_channels, np.float32)
-        out[f"{mh}.predictor.weight"] = centred((num_classes, fpn_channels), 1 / np.sqrt(fpn_channels))[..., None, None]
+        mh, dim = "roi_heads.mask_head", 256
+        mask_in = 2048 if c4 else dim
+        for i in range(1, 1 if c4 else 5):
+            out[f"{mh}.mask_fcn{i}.weight"] = conv(dim, dim, 3)
+            out[f"{mh}.mask_fcn{i}.bias"] = np.zeros(dim, np.float32)
+        out[f"{mh}.deconv.weight"] = normal((mask_in, dim, 2, 2), np.sqrt(2.0 / mask_in))
+        out[f"{mh}.deconv.bias"] = np.zeros(dim, np.float32)
+        out[f"{mh}.predictor.weight"] = centred((num_classes, dim), 1 / np.sqrt(dim))[..., None, None]
         out[f"{mh}.predictor.bias"] = np.full(num_classes, MASK_BIAS, np.float32)
     return out
 
@@ -443,3 +450,67 @@ def detection_scenes(b: int = 4, hw: tuple[int, int] = (768, 1344), seed: int = 
                 anns.append({"bbox": [x, y, bw, bh], "category_id": cls})
             gts.append(pad_gt(anns, 128, (1.0, 1.0), None))
         yield np.clip(images, 0, 255), {k: np.stack([g[k] for g in gts]) for k in gts[0]}
+
+
+def _scene_images(n: int, hw: tuple[int, int], seed: int):
+    """n seeded :func:`detection_scenes` images as uint8 with their objects
+    [(x, y, w, h, class)] (the classes of the 4 UAV classes)."""
+    scenes = detection_scenes(1, hw, seed)
+    out = []
+    for _ in range(n):
+        images, gt = next(scenes)
+        objs = [(*[int(v) for v in (b[0], b[1], b[2] - b[0], b[3] - b[1])], int(c))
+                for b, c, ok in zip(gt["boxes"][0], gt["classes"][0], gt["valid"][0]) if ok]
+        out.append((np.round(images[0]).astype(np.uint8), objs))
+    return out
+
+
+def write_coco_dataset(root: str, n_images: int, hw: tuple[int, int], seed: int = 0) -> tuple[str, str]:
+    """Seeded scenes as a COCO-format dataset under ``root``: PNG images in
+    ``images/`` and ``annotations.json`` whose objects (4 categories) carry
+    box-filled RLE segmentations.  Returns (json path, image directory)."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from apse_uav_torch.evaluation import rle
+
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+    for i, (img, objs) in enumerate(_scene_images(n_images, hw, seed)):
+        name = f"{i:06d}.png"
+        Image.fromarray(img).save(os.path.join(img_dir, name))
+        images.append({"id": i, "file_name": name, "height": hw[0], "width": hw[1]})
+        for x, y, w, h, c in objs:
+            mask = np.zeros(hw, np.uint8)
+            mask[y:y + h, x:x + w] = 1
+            seg = rle.encode(mask)
+            anns.append({"id": len(anns), "image_id": i, "category_id": c, "bbox": [x, y, w, h], "iscrowd": 0,
+                         "area": w * h, "segmentation": {"size": seg["size"], "counts": seg["counts"].decode()}})
+    path = os.path.join(root, "annotations.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": i, "name": n} for i, n in enumerate(("car", "truck", "bus", "person"))]}, f)
+    return path, img_dir
+
+
+def write_uavdt_dataset(root: str, n_seqs: int, n_frames: int, hw: tuple[int, int], seed: int = 0) -> str:
+    """Seeded scenes in UAVDT's layout under ``root``: ``M01{k:02d}/img{t:06d}.jpg``
+    frames and ``M01{k:02d}_gt_whole.txt`` rows (frame, target id, x, y, w,
+    h, out of view, occlusion, category 1-3).  Returns ``root``."""
+    import os
+
+    from PIL import Image
+
+    for k in range(n_seqs):
+        seq = f"M01{k + 1:02d}"
+        os.makedirs(os.path.join(root, seq), exist_ok=True)
+        rows = []
+        for t, (img, objs) in enumerate(_scene_images(n_frames, hw, seed + 1000 * k), start=1):
+            Image.fromarray(img).save(os.path.join(root, seq, f"img{t:06d}.jpg"), quality=95)
+            rows += [f"{t},{j + 1},{x},{y},{w},{h},0,0,{c % 3 + 1}" for j, (x, y, w, h, c) in enumerate(objs)]
+        with open(os.path.join(root, f"{seq}_gt_whole.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return root

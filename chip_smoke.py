@@ -128,6 +128,78 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    under seed 0, 150 iterations, evaluated every 25): the run
                    must reach AP50 >= 0.7; prints each evaluation's AP50 and
                    the seconds.
+14. c4          -- R101-C4 at ``mask_rcnn_r101_c4(4)``'s widths and input sizes
+                   (800 / 1333: the 4K frames resize to 750x1333, padded to
+                   768x1344; 1000 proposals, 100 detections, 14x14 masks) from a
+                   seeded detectron2-named C4 ``.pkl`` under ``OUT_DIR`` through
+                   the port's C4 import (its background bias calibrated to the
+                   frames, as in phase 7, for the threshold 0.05),
+                   ``TrackPredictor`` on 4 frames: every output finite, boxes
+                   (4, 100, 4), masks 14x14, a detection in every frame; ms per batch
+                   and by stage (backbone, RPN, res5 box head, res5 mask rerun),
+                   busy, idle share, launches, peak memory; frame 1 on the CPU:
+                   res4 within 1e-4 of its max-abs, and the detections from the
+                   card's maps and proposals matched one for one (class, box
+                   within 1e-3 px at 1344 wide, score within 1e-4; where the
+                   order is the same, boxes within 1e-2 px and masks within 1e-4).
+15. c4_train    -- one R101-C4 step at batch 2 (768x1344, default ``to_train``):
+                   the RPN head and mask head train, res5 and the box predictor
+                   stay frozen; card against CPU on the card's maps and
+                   proposals (losses within 1e-4 relative, update and gradients
+                   within 1e-4 of their max-abs); the step's ms, split and profile.
+16. train_bf16  -- phase 12's step in the reference's bf16 regime
+                   (``compute_dtype="bfloat16"``, ``head_compute_dtype="float32"``)
+                   from phase 7's checkpoint: bf16 maps, float32 parameters; the
+                   steady step ms beside phase 12's float32 one; one step at
+                   batch 1 card against CPU on the card's bf16 maps and
+                   proposals (limits as phase 15).
+17. surgery     -- ``add_mask_head`` on two seeded R101-FPN checkpoints (the
+                   result loads into the port with nothing missing and gives
+                   masks on a 4K frame), ``finetune_segmentation`` (2 iterations,
+                   ``--merge_into``), ``finetune_faster_rcnn_aerial --rpn_only``
+                   and ``finetune_coco_dataset`` (2 iterations each) on seeded
+                   COCO and UAVDT trees under ``OUT_DIR``: each exits 0 and each
+                   checkpoint it writes reloads with no key missing.
+18. cowc        -- ``CowcRoiFeaturesLoader`` with R101-FPN's ``roi_features``
+                   (phase 7's weights) on one seeded 2048x2048 COWC image (four
+                   1024 patches, 400 points): features a second; one chunk of
+                   128 boxes card against CPU within 2e-2 of its max-abs (the
+                   pooling rows are bfloat16, where a last-bit difference of a
+                   map value moves a whole bf16 step).
+19. selective   -- ``SelectivePredictor`` (p6 proposals only) at
+                   ``uav_tracker_config()`` on 4 frames with phase 7's weights:
+                   its two timings; frame 1 on the CPU at the zoo's score
+                   threshold 0.05 (p6's few large proposals leave none above
+                   0.5), detections matched one for one (boxes within 0.5 px,
+                   scores within 1e-4).
+20. parallel    -- ``sharded_inference_fn`` (phase 7's R101-FPN, one
+                   ``TrackPredictor`` a card, 4 4K frames) and ``shard_map_batch``
+                   (the two-pass ArUco front on phase 2's frames) over
+                   ``data_mesh()``, every visible card (one on a one-card
+                   machine, so it checks the split, not a speedup), against the
+                   unsharded runs: the same detections (boxes within 1e-3 px)
+                   and the same front outputs bit for bit; the sharded front's
+                   launch counts must hold one launch of K5, K3, K2, K4 and K1 a
+                   card at least.  Then the data-parallel step at
+                   ``finetune_uav``'s defaults (R101-FPN at 768x1344, batch 4,
+                   RPN and ROI heads trained, phase 7's checkpoint) on a
+                   one-rank NCCL group (a spawned process) against the plain
+                   step on the same batch (losses and updated tensors within
+                   1e-6).
+                   Phases 14-19 reach no kernel of ``csrc``: each is run with the
+                   launch counts set to 0 just before and prints them (all 0);
+                   phase 20 prints the sharded and unsharded front's counts.
+
+``python3 chip_smoke.py --all-cards`` runs only frame sharding and the
+data-parallel step, over every visible card (four on a four-card machine):
+R101-FPN at the zoo's score threshold 0.05 on 8 seeded random 4K frames, one replica a card against card 0 running each card's
+chunk (the same detections, boxes within 1e-3 px; frames a second of both:
+the wrappers run the cards in turn, so expect no speedup), and the
+data-parallel step at ``finetune_uav``'s defaults with 2 images a card, one
+NCCL process a card, against the plain step on card 0 with the whole batch
+(losses and updated tensors within rtol 5e-4, atol 1e-5, the bound the
+reference's mesh step is held to).  It builds no kernel and runs no other
+phase.
 
 Prints the card's name and power limit and a ``kernels`` JSON line before
 the last line; the last line is the ``{"ok": true, "device": ...}`` object.
@@ -440,35 +512,44 @@ def calibrate_background(ckpt: dict, cfg, pre, frames_np, dev, per_frame: int = 
     threshold falls in a crowd, which detections pass (and in which order)
     follows float rounding.  For each proposal of each frame this computes
     the largest shift of the background bias that still lets its best class
-    clear 0.5 (softmax, float64), and puts the bias in the middle of the
-    widest gap between those shifts just below the ``per_frame``-th largest
-    of the frame that has fewest: each frame keeps >= ``per_frame``
-    candidates before NMS and none sits near the threshold.  Returns the
-    calibration."""
+    clear the config's score threshold (softmax, float64), and puts the bias
+    in the middle of the widest gap between those shifts just below the
+    ``per_frame``-th largest of the frame that has fewest: each frame keeps
+    >= ``per_frame`` candidates before NMS and none sits near the threshold.
+    ``pre`` (a Preprocessor, or None for the frames as they are) prepares
+    the frames; the model is R-FPN or C4.  Returns the calibration."""
     import torch
 
     from apse_uav_torch.dcnn.engines import TrackPredictor, full_fp32
+    from apse_uav_torch.dcnn.models.c4 import MaskRCNNC4
     from apse_uav_torch.dcnn.models.roi_heads import POOL_LEVELS, fpn_roi_align
 
     h, w = frames_np.shape[1:3]
     pred = TrackPredictor(cfg, ckpt, (h, w), device=dev)
     model, heads, roi = pred.model, pred.model.roi_heads, cfg.roi
+    t = roi.score_thresh_test
     shifts, best_classes = [], []
     with torch.no_grad(), full_fp32():
         for b in range(0, frames_np.shape[0], TRACK_BATCH):
-            x = pre(torch.from_numpy(frames_np[b:b + TRACK_BATCH]).to(dev), with_gray=False)[0]
+            x = torch.from_numpy(frames_np[b:b + TRACK_BATCH]).to(dev)
+            x = x if pre is None else pre(x, with_gray=False)[0]
             feats = model.features(pred.resize(x))
             boxes, _, valid = model.proposals(feats, pred.pad_hw)
-            pooled = fpn_roi_align({n: feats[n] for n in POOL_LEVELS}, boxes, roi.box_pooler_resolution,
-                                   roi.pooler_sampling_ratio)
-            logits, _ = heads.box_predictor(heads.box_head(pooled.reshape(-1, pooled[0, 0].numel())))
+            if isinstance(model, MaskRCNNC4):
+                logits, _ = model.box_outputs(model.roi_transform(feats["res4"], boxes), *boxes.shape[:2])
+            else:
+                pooled = fpn_roi_align({n: feats[n] for n in POOL_LEVELS}, boxes, roi.box_pooler_resolution,
+                                       roi.pooler_sampling_ratio)
+                logits, _ = heads.box_predictor(heads.box_head(pooled.reshape(-1, pooled[0, 0].numel())))
             lg = logits.reshape(*boxes.shape[:2], -1).double()
             fg, bg = lg[..., :-1], lg[..., -1]
             k = fg.argmax(-1, keepdim=True)
             best = fg.gather(-1, k)[..., 0]
             rest = torch.logsumexp(fg.scatter(-1, k, float("-inf")), -1)
-            shift = torch.log(torch.clamp(torch.exp(best) - torch.exp(rest), min=1e-300)) - bg
-            shifts += list(torch.where(valid & (best > rest), shift, torch.full_like(shift, float("-inf"))).cpu())
+            # The best class's probability is t where exp(bg + shift) = exp(best) / t - exp(best) - exp(rest).
+            room = torch.exp(best) * (1.0 / t - 1.0) - torch.exp(rest)
+            shift = torch.log(torch.clamp(room, min=1e-300)) - bg
+            shifts += list(torch.where(valid & (room > 0), shift, torch.full_like(shift, float("-inf"))).cpu())
             best_classes += list(k[..., 0].cpu())
     ranked = [torch.sort(s, descending=True).values for s in shifts]
     target = min(float(s[per_frame - 1]) for s in ranked)
@@ -946,8 +1027,7 @@ def detector_phase(frames_np, card: str, dev) -> dict:
         args = detector_test.build_parser().parse_args(aerial_view_test.aerial_argv(
             ["--images", "unused", "--weights", "unused", "--device", device]))
         if key == "card":
-            calibration = calibrate_background(ckpt, track_uav.model_config(args), lambda x, with_gray: (x, None),
-                                               two, dev, per_frame=4)
+            calibration = calibrate_background(ckpt, track_uav.model_config(args), None, two, dev, per_frame=4)
         pred = detector_test.build_predictor(args, two.shape[1:3], ckpt)
         t0 = time.perf_counter()
         out[key] = [detector_test.detect(pred, f) for f in two]
@@ -1296,6 +1376,660 @@ def learning_phase(card: str, dev) -> dict:
     return res
 
 
+# -- slice 8: C4, bf16 training, surgery CLIs, COWC, SelectivePredictor, parallelism --
+
+
+def reset_and_read(fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (its result, the counts).  Of the slice-8 paths only the ArUco
+    front of phase 20 reaches kernels of ``csrc``; the others leave every
+    count at 0."""
+    from apse_uav_torch import _build
+
+    _build.reset_counts()
+    out = fn()
+    return out, dict(_build.launches)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b| (tensors on any device)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-12))
+
+
+def unmatched_detections(a: dict, b: dict, i: int, box_tol: float, score_tol: float, thresh: float) -> int:
+    """Valid detections of image i in ``a`` with no detection in ``b`` of the
+    same class, a box within ``box_tol`` px and a score within ``score_tol``
+    (both ways), leaving out those whose score lies within ``score_tol`` of
+    the threshold or of the lowest kept score (where a last-bit difference
+    may decide the cut)."""
+    import torch
+
+    def rows(d):
+        v = d["valid"][i].cpu()
+        return d["classes"][i].cpu()[v], d["boxes"][i].cpu()[v], d["scores"][i].cpu()[v]
+
+    (ca, ba, sa), (cb, bb, sb) = rows(a), rows(b)
+    low = min(float(sa.min()) if len(sa) else 1.0, float(sb.min()) if len(sb) else 1.0)
+    missing = 0
+    for (c1, b1, s1), (c2, b2, s2) in (((ca, ba, sa), (cb, bb, sb)), ((cb, bb, sb), (ca, ba, sa))):
+        for c, box, sc in zip(c1, b1, s1):
+            if abs(float(sc) - thresh) <= score_tol or abs(float(sc) - low) <= score_tol:
+                continue
+            ok = (c2 == c) & ((b2 - box).abs().amax(dim=-1) <= box_tol) & ((s2 - sc).abs() <= score_tol)
+            missing += int(not bool(torch.any(ok)))
+    return missing
+
+
+def c4_phase(frames_np, card: str, dev, cfg=None) -> dict:
+    """R101-C4 (``mask_rcnn_r101_c4(4)``'s widths and input sizes) through
+    ``TrackPredictor`` on 4 frames from a seeded detectron2-named C4 ``.pkl``
+    (phase 14; a smaller ``cfg`` shrinks a CPU rehearsal)."""
+    import pickle
+
+    import torch
+
+    from apse_uav_torch.dcnn import weights as W
+    from apse_uav_torch.dcnn.config import mask_rcnn_r101_c4
+    from apse_uav_torch.dcnn.engines import TrackPredictor, full_fp32
+    from apse_uav_torch.dcnn.models.roi_heads import box_inference
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint
+
+    cfg = cfg or mask_rcnn_r101_c4(4)
+    depth = cfg.depth
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "c4_r101.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"model": detectron2_checkpoint(8, depth, 4, architecture="c4"), "__author__": "seeded"}, f)
+    frames = frames_np[:TRACK_BATCH]
+    h, w = frames.shape[1:3]
+    t0 = time.perf_counter()
+    weights = W.load_torch_file(path)
+    os.remove(path)
+    load_s = time.perf_counter() - t0
+    # Random weights: the background bias set so that each frame holds >= 10
+    # candidates above the threshold, none near it (as in phase 7).
+    calibration = calibrate_background(weights, cfg, None, frames, dev)
+    t0 = time.perf_counter()
+    pred = TrackPredictor(cfg, weights, (h, w), device=dev)
+    load_s += time.perf_counter() - t0
+    if pred.missing:
+        raise SmokeFailure(f"c4: the C4 import left {pred.missing[:3]} at init")
+    model = pred.model
+    x_dev = torch.from_numpy(frames).to(dev)
+    (dets, feats), counts = reset_and_read(lambda: pred(x_dev))
+    torch.cuda.synchronize()
+    d, r = cfg.roi.detections_per_image, 2 * cfg.roi.mask_pooler_resolution
+    if (tuple(dets["boxes"].shape) != (TRACK_BATCH, d, 4) or tuple(dets["masks"].shape) != (TRACK_BATCH, d, r, r)
+            or set(feats) != {"res2", "res3", "res4"}):
+        raise SmokeFailure(f"c4: shapes {tuple(dets['boxes'].shape)}, {tuple(dets['masks'].shape)}, {sorted(feats)}")
+    bad = [k for k, v in {**dets, **feats}.items() if v.is_floating_point() and not torch.isfinite(v).all()]
+    if bad:
+        raise SmokeFailure(f"c4: non-finite outputs {bad}")
+
+    # Stage times (each alone, ending in a synchronize), the batch profiled.
+    x = pred.resize(x_dev)
+    hw_pad = pred.pad_hw
+    stage = {}
+    with torch.no_grad(), full_fp32():
+        f = model.features(x)
+        boxes, _, valid = model.proposals(f, hw_pad)
+        nb, p = boxes.shape[:2]
+        det = model.detect(f, boxes, valid, hw_pad)
+        stage["backbone"] = wall_ms(lambda: model.features(x))
+        stage["rpn_proposals"] = wall_ms(lambda: model.proposals(f, hw_pad))
+
+        def box_head():
+            logits, deltas = model.box_outputs(model.roi_transform(f["res4"], boxes), nb, p)
+            return box_inference(logits, deltas, boxes, valid, hw_pad, cfg.roi)
+
+        stage["res5_box_head"] = wall_ms(box_head)
+        stage["res5_mask_rerun"] = wall_ms(lambda: model.roi_heads.mask_head(
+            model.roi_transform(f["res4"], det["boxes"])))
+    batch_ms = wall_ms(lambda: pred(x_dev))
+    profile = profile_call(lambda: pred(x_dev), batch_ms)
+    profile["top_kernels"] = profile["top_kernels"][:6]
+    torch.cuda.reset_peak_memory_stats()
+    pred(x_dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # Frame 1 on the CPU: its own res4 against the card's; the detections
+    # from the card's maps and proposals (top-k and NMS order follow the
+    # scores' last bits).
+    cpred = TrackPredictor(cfg, weights, (h, w), device="cpu")
+    cx = cpred.resize(frames[:1])
+    with torch.no_grad():
+        cf = cpred.model.features(cx)
+        map_err = rel_err(feats["res4"][:1], cf["res4"])
+        card_f = {k: v[:1].cpu() for k, v in feats.items()}
+        cdet = cpred.postprocess(cpred.model.detect(card_f, boxes[:1].cpu(), valid[:1].cpu(), hw_pad))
+    gdet = {k: v[:1] for k, v in dets.items()}
+    unmatched = unmatched_detections(gdet, cdet, 0, 1e-3 * max(h, w) / 1344, 1e-4, cfg.roi.score_thresh_test)
+    same = bool(torch.equal(gdet["valid"].cpu(), cdet["valid"]) and torch.equal(gdet["classes"].cpu(),
+                                                                                  cdet["classes"]))
+    box_err = float((gdet["boxes"].cpu() - cdet["boxes"]).abs().max()) if same else None
+    mask_err = float((gdet["masks"].cpu() - cdet["masks"]).abs().max()) if same else None
+    res = {"depth": depth, "frames": TRACK_BATCH, "size": [w, h], "net_hw": list(pred.net_hw),
+           "pad_hw": list(pred.pad_hw), "proposals": p, "detections": d, "mask_size": r,
+           "valid_detections": dets["valid"].sum(dim=1).tolist(), "calibration": calibration,
+           "load_s": round(load_s, 3),
+           "batch_ms": round(batch_ms, 3), "frames_per_s": round(TRACK_BATCH * 1e3 / batch_ms, 3),
+           "stage_ms": {k: round(v, 3) for k, v in stage.items()}, "device_busy_ms": profile["device_busy_ms"],
+           "device_idle_share": profile["device_idle_share"], "kernel_launches": profile["kernel_launches"],
+           "top_kernels": profile["top_kernels"], "peak_mem_gib": round(peak, 3), "launches": counts,
+           "card_cpu_res4_rel_err": map_err, "card_cpu_same_order": same, "card_cpu_box_err_px": box_err,
+           "card_cpu_mask_err": mask_err, "card_cpu_unmatched": unmatched, "card": card}
+    log({"phase": "c4", **res})
+    if min(res["valid_detections"]) < 1:
+        raise SmokeFailure(f"c4: no detection above the threshold in some frame: {res['valid_detections']}")
+    if map_err > 1e-4 or unmatched or (same and (box_err > 1e-2 or mask_err > 1e-4)):
+        raise SmokeFailure(f"c4: card vs CPU: res4 {map_err} (limit 1e-4), unmatched detections {unmatched}, "
+                           f"boxes {box_err} px (limit 1e-2), masks {mask_err} (limit 1e-4)")
+    return res
+
+
+def c4_train_phase(card: str, dev, cfg=None, hw=(768, 1344)) -> dict:
+    """One R101-C4 fine-tune step at batch 2 (phase 15): the default
+    ``to_train`` trains the RPN head and the mask head only (``res5`` and the
+    box predictor frozen, as the reference labels them), card against CPU on
+    the card's maps and proposals; the step's ms on the card."""
+    import torch
+
+    from apse_uav_torch.dcnn import flax_init
+    from apse_uav_torch.dcnn.config import mask_rcnn_r101_c4
+    from apse_uav_torch.train import loop, optim, steps
+    from apse_uav_torch.utils.synthetic import detection_scenes, detectron2_checkpoint
+
+    cfg = cfg or mask_rcnn_r101_c4(4)
+    depth = cfg.depth
+    ckpt = detectron2_checkpoint(8, depth, 4, architecture="c4")
+    images, gt = next(detection_scenes(2, hw, seed=7))
+    ms = 8  # box-filled masks at 1/8 of the image (the losses crop them at any scale)
+    gt["masks"] = np.zeros((2, gt["boxes"].shape[1], hw[0] // ms, hw[1] // ms), np.float32)
+    for i, j in zip(*np.nonzero(gt["valid"])):
+        x1, y1, x2, y2 = (gt["boxes"][i, j] / ms).astype(int)
+        gt["masks"][i, j, y1:y2 + 1, x1:x2 + 1] = 1.0
+    to_train = ("proposal_generator", "roi_heads")
+    key = flax_init.prng_key(123)
+    one, feats, proposals, counts = {}, None, None, None
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = loop.build_detector(cfg, ckpt, 0, d)
+        tensors = m.state_dict(keep_vars=True)
+        opt = optim.build_finetune_optimizer(tensors, to_train, lr=optim.warmup_multistep_schedule(0.02, (), 1, 1.0))
+        steps.trainable_only(opt.trainable(), tensors.values())
+        x = torch.from_numpy(images).to(d)
+        g = {k: torch.from_numpy(v).to(d) for k, v in gt.items()}
+        if feats is None:
+            with torch.no_grad():
+                feats = m.features(x)
+            proposals = m.training_proposals(x, feats)
+        t0 = time.perf_counter()
+        l, c = reset_and_read(lambda: steps.detector_train_step(
+            m, opt, x, g, key, True, proposals=tuple(t.to(d) for t in proposals),
+            features={k: v.to(d) for k, v in feats.items()}))
+        counts = counts or c
+        one[name] = ({k: float(v) for k, v in l.items()},
+                     {k: tensors[k].detach().cpu().numpy().copy() for k in opt.names},
+                     {k: v.cpu().numpy().copy() for k, v in opt.trace.items()}, time.perf_counter() - t0, opt.names)
+        if name == "card":
+            perf = detector_step_profile(m, opt, x, g, key)
+            frozen_moved = [k for k, v in tensors.items() if k not in opt.names
+                            and not np.array_equal(v.detach().cpu().numpy(), ckpt[k])]
+        del m, opt, tensors
+    names = one["card"][4]
+    trained = sorted({k.split(".")[1] for k in names})
+    loss_err = {k: abs(one["card"][0][k] - v) / abs(v) for k, v in one["cpu"][0].items()}
+    upd_err, upd, grad_err = update_errors(one["card"][1], one["cpu"][1], ckpt, one["card"][2], one["cpu"][2])
+    res = {"depth": depth, "batch": 2, "size": list(hw), "trained_modules": trained,
+           "trained_tensors": len(names), "frozen_moved": frozen_moved[:3], "losses": one["card"][0],
+           "card_cpu_loss_rel_err": loss_err, "card_cpu_update_err": upd_err, "update_max_abs": upd,
+           "card_cpu_gradient_err": grad_err, "cpu_step_s": round(one["cpu"][3], 3), "launches": counts,
+           **{k: v for k, v in perf.items() if k != "profile"}, "device_busy_ms": perf["profile"]["device_busy_ms"],
+           "device_idle_share": perf["profile"]["device_idle_share"],
+           "kernel_launches": perf["profile"]["kernel_launches"], "card": card}
+    log({"phase": "c4_train", **res})
+    if trained != ["mask_head", "rpn_head"] or frozen_moved:
+        raise SmokeFailure(f"c4_train: trained {trained} (want mask_head, rpn_head), frozen moved {frozen_moved[:3]}")
+    if max(loss_err.values()) > 1e-4 or upd_err > 1e-4 or grad_err > 1e-4:
+        raise SmokeFailure(f"c4_train: card vs CPU: losses {loss_err}, update {upd_err}, gradient {grad_err} "
+                           "(limits 1e-4)")
+    return res
+
+
+def train_bf16_phase(ckpt: dict, f32_step_ms: float, card: str, dev, hw=None, depth: int = 101) -> dict:
+    """``finetune_uav``'s defaults in the reference's bf16 regime
+    (``compute_dtype="bfloat16"``, ``head_compute_dtype="float32"``) from
+    phase 7's checkpoint (phase 16): the steady step beside phase 12's
+    float32 one, and one step at batch 1 card against CPU on the card's bf16
+    maps and proposals."""
+    import torch
+
+    from apse_uav_torch.cli import finetune_uav
+    from apse_uav_torch.dcnn import flax_init
+    from apse_uav_torch.train import loop, optim, steps
+    from apse_uav_torch.utils.synthetic import detection_scenes
+
+    size = [] if hw is None else ["--train_size", str(hw[0]), str(hw[1])]
+    args = finetune_uav.build_parser().parse_args(["--workdir", "unused", "--depth", str(depth)] + size)
+    cfg = dataclasses.replace(finetune_uav.model_config(args), compute_dtype="bfloat16",
+                              head_compute_dtype="float32")
+    hw = tuple(args.train_size)
+    key = flax_init.prng_key(123)
+    images, gt = next(detection_scenes(1, hw, seed=5))
+    one, given, counts = {}, None, None
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = loop.build_detector(cfg, ckpt, 0, d)
+        tensors = m.state_dict(keep_vars=True)
+        opt = optim.build_finetune_optimizer(tensors, args.to_train, lr=optim.warmup_multistep_schedule(
+            args.lr, (), 1, 1.0))
+        steps.trainable_only(opt.trainable(), tensors.values())
+        x = torch.from_numpy(images).to(d)
+        if given is None:
+            with torch.no_grad():
+                feats = m.features(x)
+            given = feats, m.training_proposals(x, feats)
+        l, c = reset_and_read(lambda: steps.detector_train_step(
+            m, opt, x, {k: torch.from_numpy(v).to(d) for k, v in gt.items()}, key, True,
+            proposals=tuple(t.to(d) for t in given[1]), features={k: v.to(d) for k, v in given[0].items()}))
+        counts = counts or c
+        one[name] = ({k: float(v) for k, v in l.items()}, {k: tensors[k].detach().cpu().numpy() for k in opt.names},
+                     {k: v.cpu().numpy() for k, v in opt.trace.items()})
+        del m, opt, tensors
+    dtypes = sorted({str(v.dtype) for v in given[0].values()})
+    loss_err = {k: abs(one["card"][0][k] - v) / abs(v) for k, v in one["cpu"][0].items()}
+    upd_err, upd, grad_err = update_errors(one["card"][1], one["cpu"][1], ckpt, one["card"][2], one["cpu"][2])
+    m = loop.build_detector(cfg, ckpt, 0, dev)
+    tensors = m.state_dict(keep_vars=True)
+    opt = optim.build_finetune_optimizer(tensors, args.to_train, lr=optim.warmup_multistep_schedule(args.lr, (), 50))
+    steps.trainable_only(opt.trainable(), tensors.values())
+    bimages, bgt = next(detection_scenes(args.batch_size, hw, seed=6))
+    perf = detector_step_profile(m, opt, torch.from_numpy(bimages).to(dev),
+                                 {k: torch.from_numpy(v).to(dev) for k, v in bgt.items()}, key)
+    param_dtypes = sorted({str(v.dtype) for v in tensors.values()})
+    res = {"depth": depth, "batch": args.batch_size, "size": list(hw), "map_dtypes": dtypes,
+           "param_dtypes": param_dtypes, "step_ms": perf["step_ms"], "float32_step_ms": f32_step_ms,
+           "split_ms": perf["split_ms"], "syncs_per_step": perf["syncs_per_step"], "peak_mem_gib": perf["peak_mem_gib"],
+           "device_busy_ms": perf["profile"]["device_busy_ms"],
+           "device_idle_share": perf["profile"]["device_idle_share"],
+           "kernel_launches": perf["profile"]["kernel_launches"], "top_kernels": perf["profile"]["top_kernels"],
+           "losses": one["card"][0], "card_cpu_loss_rel_err": loss_err, "card_cpu_update_err": upd_err,
+           "update_max_abs": upd, "card_cpu_gradient_err": grad_err, "launches": counts, "card": card}
+    log({"phase": "train_bf16", **res})
+    if dtypes != ["torch.bfloat16"] or param_dtypes != ["torch.float32"]:
+        raise SmokeFailure(f"train_bf16: maps {dtypes}, parameters {param_dtypes}")
+    if not all(np.isfinite(v) for v in one["card"][0].values()):
+        raise SmokeFailure(f"train_bf16: losses {one['card'][0]}")
+    if max(loss_err.values()) > 1e-4 or upd_err > 1e-4 or grad_err > 1e-4:
+        raise SmokeFailure(f"train_bf16: card vs CPU: losses {loss_err}, update {upd_err}, gradient {grad_err} "
+                           "(limits 1e-4)")
+    return res
+
+
+def _reloads(workdir: str, cfg) -> int:
+    """Load ``workdir/last`` into a model of ``cfg``: the number of missing keys."""
+    from apse_uav_torch.dcnn import weights as W
+    from apse_uav_torch.dcnn.models.c4 import build_model
+    from apse_uav_torch.train import checkpoint as tckpt
+
+    state = tckpt.load_state(workdir, "last")
+    return len(W.load_detectron2(build_model(cfg), state["params"])[0])
+
+
+def surgery_phase(frame_np, card: str, dev, depth: int = 101, hw=(540, 960), train_size=None) -> dict:
+    """The weight-surgery and remaining training CLIs on the card (phase 17):
+    ``add_mask_head`` on two seeded R-FPN checkpoints (the result loads into
+    the port and gives masks), ``finetune_segmentation`` (2 iterations,
+    ``--merge_into``), ``finetune_faster_rcnn_aerial --rpn_only`` and
+    ``finetune_coco_dataset`` (2 iterations each) on seeded COCO and UAVDT
+    trees under OUT_DIR; every run exits 0 and every checkpoint reloads."""
+    import pickle
+    import shutil
+
+    import torch
+
+    from apse_uav_torch.cli import (add_mask_head, finetune_coco_dataset, finetune_faster_rcnn_aerial,
+                                    finetune_segmentation)
+    from apse_uav_torch.dcnn import weights as W
+    from apse_uav_torch.dcnn.config import mask_rcnn_r50_fpn, mask_rcnn_r101_fpn
+    from apse_uav_torch.dcnn.engines import TrackPredictor
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint, write_coco_dataset, write_uavdt_dataset
+
+    root = os.path.join(OUT_DIR, "surgery")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ann, images = write_coco_dataset(os.path.join(root, "coco"), 5, hw, seed=3)
+    uav = write_uavdt_dataset(os.path.join(root, "uav"), 2, 2, hw, seed=4)
+    data_s = time.perf_counter() - t0
+
+    def save_pth(path, ckpt):
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in ckpt.items()}}, path)
+
+    det_pth, src_pkl = os.path.join(root, "det.pth"), os.path.join(root, "coco80.pkl")
+    save_pth(det_pth, detectron2_checkpoint(11, depth, 4, mask_on=False))
+    with open(src_pkl, "wb") as f:
+        pickle.dump({"model": detectron2_checkpoint(12, depth, 80), "__author__": "seeded"}, f)
+    merged = os.path.join(root, "merged.pkl")
+    dev_flag = ["--device", dev.type]
+    runs = {}
+
+    def run(name, fn):
+        t = time.perf_counter()
+        rc, counts = reset_and_read(fn)
+        torch.cuda.synchronize()
+        runs[name] = {"rc": rc, "s": round(time.perf_counter() - t, 3), "launches": counts}
+        if rc != 0:
+            raise SmokeFailure(f"surgery: {name} exited {rc}")
+
+    run("add_mask_head", lambda: add_mask_head.main(["--detector", det_pth, "--mask_source", src_pkl, "--out", merged,
+                                                     "--depth", str(depth), "--class_rows", "2", "7", "5", "0"]))
+    cfg101 = mask_rcnn_r101_fpn(4) if depth == 101 else mask_rcnn_r50_fpn(4)
+    cfg101 = dataclasses.replace(cfg101, depth=depth)
+    weights = W.load_torch_file(merged)
+    pred = TrackPredictor(cfg101, weights, frame_np.shape[:2], device=dev)
+    dets, _ = pred(frame_np[None])
+    if pred.missing or not torch.isfinite(dets["masks"]).all():
+        raise SmokeFailure(f"surgery: add_mask_head's output: missing {pred.missing[:3]}")
+    del pred
+    size = [] if train_size is None else ["--train_size", str(train_size[0]), str(train_size[1])]
+    seg_out = os.path.join(root, "seg_merged.pkl")
+    run("finetune_segmentation", lambda: finetune_segmentation.main(
+        ["--coco_json", ann, "--coco_images", images, "--workdir", os.path.join(root, "seg"), "--weights", merged,
+         "--depth", str(depth), "--max_iter", "2", "--test_period", "2", "--merge_into", det_pth, "--merge_out",
+         seg_out] + size + dev_flag))
+    aerial_w = os.path.join(root, "aerial.pth")
+    save_pth(aerial_w, detectron2_checkpoint(13, 50, 3, mask_on=False))
+    run("finetune_faster_rcnn_aerial", lambda: finetune_faster_rcnn_aerial.main(
+        ["--uavdt_dir", uav, "--workdir", os.path.join(root, "aerial"), "--weights", aerial_w, "--max_iter", "2",
+         "--test_period", "2", "--rpn_only"] + dev_flag))
+    run("finetune_coco_dataset", lambda: finetune_coco_dataset.main(
+        ["--coco_json", ann, "--coco_images", images, "--workdir", os.path.join(root, "coco_run"), "--num_classes",
+         "4", "--max_iter", "2"] + dev_flag))
+    missing = {"seg_merged": len(W.load_detectron2(TrackPredictor(cfg101, None, (64, 64), "cpu").model,
+                                                   W.load_torch_file(seg_out))[0]),
+               "finetune_segmentation": _reloads(os.path.join(root, "seg"), cfg101),
+               "finetune_faster_rcnn_aerial": _reloads(os.path.join(root, "aerial"),
+                                                       dataclasses.replace(mask_rcnn_r50_fpn(3), mask_on=False)),
+               "finetune_coco_dataset": _reloads(os.path.join(root, "coco_run"), mask_rcnn_r50_fpn(4))}
+    for sub in ("seg", "aerial", "coco_run"):
+        remove_checkpoints(os.path.join(root, sub))
+    for path in (det_pth, src_pkl, merged, seg_out, aerial_w):
+        os.remove(path)
+    res = {"depth": depth, "data_s": round(data_s, 3), "runs": runs, "reload_missing": missing,
+           "merged_detections": int(dets["valid"].sum()), "card": card}
+    log({"phase": "surgery", **res})
+    if any(missing.values()):
+        raise SmokeFailure(f"surgery: checkpoints that do not reload: {missing}")
+    return res
+
+
+def write_cowc_image(root: str, size: int = 2048, n_cars: int = 200, n_neg: int = 200, seed: int = 0) -> None:
+    """One seeded COWC-style image: textured asphalt with bright car blobs,
+    its ``_Annotated_Cars.png`` (saturated-red points) and
+    ``_Annotated_Negatives.png`` (saturated-blue points)."""
+    from PIL import Image
+
+    from apse_uav_torch.utils.synthetic import ASPHALT
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    img = (ASPHALT + 12 * np.sin(xx / 13.0) * np.cos(yy / 11.0))[..., None] + rng.normal(0, 5, (size, size, 3))
+    cars = np.zeros((size, size, 3), np.uint8)
+    neg = np.zeros((size, size, 3), np.uint8)
+    for r, c in rng.integers(20, size - 20, (n_cars, 2)):
+        img[r - 8:r + 8, c - 4:c + 4] = rng.uniform(60, 230, 3)
+        cars[r, c, 0] = 255
+    for r, c in rng.integers(0, size, (n_neg, 2)):
+        neg[r, c, 2] = 255
+    os.makedirs(root, exist_ok=True)
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(root, "tile.png"))
+    Image.fromarray(cars).save(os.path.join(root, "tile_Annotated_Cars.png"))
+    Image.fromarray(neg).save(os.path.join(root, "tile_Annotated_Negatives.png"))
+
+
+def cowc_phase(ckpt: dict, cfg, card: str, dev, size: int = 2048) -> dict:
+    """``CowcRoiFeaturesLoader`` with R101-FPN's ``roi_features`` on one
+    seeded 2048x2048 COWC image (four 1024 patches, 400 points; phase 18):
+    features a second, and one chunk card against CPU."""
+    import shutil
+
+    import torch
+
+    from PIL import Image
+
+    from apse_uav_torch.data.cowc import (CowcRoiFeaturesLoader, _patch_instances, _points_from_annotation,
+                                          build_roi_feature_fn)
+    from apse_uav_torch.dcnn import weights as W
+    from apse_uav_torch.dcnn.models.c4 import build_model
+
+    root = os.path.join(OUT_DIR, "cowc")
+    shutil.rmtree(root, ignore_errors=True)
+    write_cowc_image(root, size)
+    model = build_model(cfg).eval()
+    W.load_detectron2(model, ckpt)
+    fn = build_roi_feature_fn(model.to(dev))
+    patch = min(1024, size // 2)
+    CowcRoiFeaturesLoader(fn, root, patch_size=patch)  # warm-up (cuDNN's choices)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loader, counts = reset_and_read(lambda: CowcRoiFeaturesLoader(fn, root, patch_size=patch))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    batches = list(loader)
+    n_points = sum(len(_points_from_annotation(os.path.join(root, f"tile_Annotated_{k}.png"), ch)[0])
+                   for k, ch in (("Cars", 0), ("Negatives", 2)))
+    # One chunk (patch 0's first 128 boxes), card against CPU.
+    img = np.array(Image.open(os.path.join(root, "tile.png")))[:patch, :patch].astype(np.float32)
+    cars = _points_from_annotation(os.path.join(root, "tile_Annotated_Cars.png"), 0)
+    negs = _points_from_annotation(os.path.join(root, "tile_Annotated_Negatives.png"), 2)
+    boxes = _patch_instances(cars, negs, (0, 0), patch, 18)[0][:128]
+    card_f = fn(img[None], boxes[None]).cpu()
+    cmodel = build_model(cfg).eval()
+    W.load_detectron2(cmodel, ckpt)
+    cpu_f = build_roi_feature_fn(cmodel)(img[None], boxes[None])
+    err = rel_err(card_f, cpu_f)
+    shutil.rmtree(root)
+    res = {"image": [size, size], "patch": patch, "points": n_points, "batches": len(batches),
+           "feature_dim": int(batches[0][0].shape[1]) if batches else None, "seconds": round(seconds, 3),
+           "features_per_s": round(n_points / seconds, 3), "card_cpu_chunk_rel_err": err, "chunk_rows": len(boxes),
+           "launches": counts, "card": card}
+    log({"phase": "cowc", **res})
+    if not batches or not all(np.isfinite(f).all() for f, _ in batches):
+        raise SmokeFailure(f"cowc: {len(batches)} batches, or non-finite features")
+    if err > 2e-2:
+        raise SmokeFailure(f"cowc: card vs CPU chunk {err} (limit 2e-2)")
+    return res
+
+
+def selective_phase(frames_np, ckpt: dict, cfg, card: str, dev) -> dict:
+    """``SelectivePredictor`` (proposals from p6 alone) at
+    ``uav_tracker_config()`` on 4 frames with phase 7's weights (phase 19):
+    its two timings, and frame 1 card against CPU."""
+    import torch
+
+    from apse_uav_torch.dcnn.engines import SelectivePredictor
+
+    frames = frames_np[:TRACK_BATCH]
+    h, w = frames.shape[1:3]
+    sel = SelectivePredictor(cfg, ckpt, (h, w), device=dev)
+    x = torch.from_numpy(frames).to(dev)
+    sel(x)
+    dets, counts = reset_and_read(lambda: sel(x))
+    timings = {k: round(v * 1e3, 3) for k, v in sel.timings.items()}
+    # Card against CPU at the zoo's threshold (0.05): p6's few large
+    # proposals leave no detection above the tracker's 0.5.
+    low = dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, score_thresh_test=0.05))
+    gd = {k: v.cpu() for k, v in SelectivePredictor(low, ckpt, (h, w), device=dev)(x[:1]).items()}
+    cdets = SelectivePredictor(low, ckpt, (h, w), device="cpu")(frames[:1])
+    unmatched = unmatched_detections(gd, cdets, 0, 0.5, 1e-4, 0.05)
+    res = {"frames": TRACK_BATCH, "size": [w, h], "rpn_levels": list(sel.rpn_levels), "timings_ms": timings,
+           "valid_detections": dets["valid"].sum(dim=1).tolist(),
+           "compared_at_0.05": int(cdets["valid"].sum()),
+           "card_cpu_same_order": bool(torch.equal(gd["valid"], cdets["valid"])
+                                       and torch.equal(gd["classes"], cdets["classes"])),
+           "card_cpu_unmatched": unmatched, "launches": counts, "card": card}
+    log({"phase": "selective", **res})
+    if unmatched:
+        raise SmokeFailure(f"selective: card vs CPU frame 1: {unmatched} detections unmatched (boxes within 0.5 px, "
+                           "scores within 1e-4)")
+    return res
+
+
+def sharding_check(devices, cfg, ckpt: dict, frames_np, iters: int = 3) -> dict:
+    """Frame sharding: one ``TrackPredictor`` replica of ``cfg`` a device of
+    ``devices`` through ``sharded_inference_fn`` on ``frames_np`` (B, H, W,
+    3) u8, B a multiple of the device count, against the first device
+    running each device's chunk (the same batch size, so the same
+    convolution algorithms): the same detections, boxes within 1e-3 px.
+    Frames a second of the sharded run and of the first device alone on all
+    the frames (host clock, ending when every device is done)."""
+    import torch
+
+    from apse_uav_torch.dcnn.engines import TrackPredictor
+    from apse_uav_torch.device import synchronize
+    from apse_uav_torch.parallel.mesh import shard_batch, sharded_inference_fn
+
+    hw = frames_np.shape[1:3]
+    replicas = [TrackPredictor(cfg, ckpt, hw, device=d) for d in devices]
+    run = sharded_inference_fn(lambda pred, x: pred(x)[0], replicas, devices)
+    ref = replicas[0]
+    got, counts = reset_and_read(lambda: run(frames_np))
+    chunks = [{k: v.to(devices[0]) for k, v in ref(c.to(devices[0]))[0].items()}
+              for c in shard_batch(devices, frames_np)]
+    want = {k: torch.cat([c[k] for c in chunks]) for k in got}
+    same = all(torch.equal(got[k], want[k]) for k in ("valid", "classes"))
+    box_err = float((got["boxes"] - want["boxes"]).abs().max()) if same else None
+
+    def wall(fn) -> float:
+        fn()
+        for d in devices:
+            synchronize(d)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        for d in devices:
+            synchronize(d)
+        return (time.perf_counter() - t0) / iters
+
+    sharded_s = wall(lambda: run(frames_np))
+    one_s = wall(lambda: ref(frames_np))
+    n = frames_np.shape[0]
+    return {"check": "frame_sharding", "devices": [str(d) for d in devices], "frames": n, "size": [hw[1], hw[0]],
+            "valid_detections": int(got["valid"].sum()), "same_detections": same, "box_err_px": box_err,
+            "sharded_frames_per_s": n / sharded_s, "one_device_frames_per_s": n / one_s,
+            "speedup": one_s / sharded_s, "launches": counts,
+            "ok": bool(same and box_err <= 1e-3 and int(got["valid"].sum()) > 0)}
+
+
+def finetune_dp_job(ckpt: dict, world: int, hw=None, depth: int = 101):
+    """The data-parallel step at ``finetune_uav``'s defaults (R101-FPN, its
+    ``to_train`` and rate, ``detection_scenes`` at its 768x1344 train size)
+    from ``ckpt``: ``finetune_uav``'s batch of 4, or 2 images a rank where
+    ``world`` ranks need more.  ``hw`` and ``depth`` shrink a CPU rehearsal."""
+    from apse_uav_torch.cli import finetune_uav
+    from apse_uav_torch.dcnn import flax_init
+    from apse_uav_torch.parallel import dp
+    from apse_uav_torch.utils.synthetic import detection_scenes
+
+    size = [] if hw is None else ["--train_size", str(hw[0]), str(hw[1])]
+    args = finetune_uav.build_parser().parse_args(["--workdir", "unused", "--depth", str(depth)] + size)
+    n = world * max(2, args.batch_size // world)
+    images, gt = next(detection_scenes(n, tuple(args.train_size), seed=6))
+    return dp.DPJob(finetune_uav.model_config(args), {k: np.asarray(v) for k, v in ckpt.items()}, images, gt,
+                    flax_init.prng_key(123), tuple(args.to_train), args.lr)
+
+
+def dp_check(job, world: int, device) -> dict:
+    """``job`` data-parallel over ``world`` spawned ranks (NCCL on cards,
+    rank r on card r; gloo on the CPU) against ``dp.plain_step`` on
+    ``device`` with the whole batch.  One rank must give the plain step's
+    numbers (within 1e-6: the all-reduce of one rank is exact); several, the
+    losses and updated tensors within rtol 5e-4, atol 1e-5 (the bound the
+    reference's mesh step is held to)."""
+    from apse_uav_torch.dcnn.engines import full_fp32
+    from apse_uav_torch.parallel import dp
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    losses, state = dp.run_group(world, job, backend)
+    dp_s = time.perf_counter() - t0
+    with full_fp32():
+        want, want_state = dp.plain_step(job, device)
+    loss_err = max(abs(losses[k] - v) / max(abs(v), 1e-12) for k, v in want.items())
+    param_err = max(float(np.abs(state[k] - v).max()) for k, v in want_state.items())
+    if world == 1:
+        ok = loss_err <= 1e-6 and param_err <= 1e-6
+    else:
+        ok = (all(np.isclose(losses[k], v, rtol=5e-4, atol=1e-5) for k, v in want.items())
+              and all(np.allclose(state[k], v, rtol=5e-4, atol=1e-5) for k, v in want_state.items()))
+    moved = sum(not np.array_equal(want_state[k], job.init[k]) for k in want_state if k in job.init)
+    return {"check": "data_parallel_step", "backend": backend, "ranks": world, "images": int(job.images.shape[0]),
+            "size": list(job.images.shape[1:3]), "depth": job.cfg.depth, "tensors_moved": moved,
+            "dp_s": dp_s, "loss_rel_err": loss_err, "param_max_abs_err": param_err, "losses": losses,
+            "ok": bool(ok and all(np.isfinite(v) for v in losses.values()) and moved > 0)}
+
+
+def parallel_phase(frames_np, frames, pipe, ckpt: dict, cfg, card: str, dev, dp_hw=None, dp_depth: int = 101) -> dict:
+    """``sharded_inference_fn`` (R101-FPN) and ``shard_map_batch`` (the
+    two-pass ArUco front) over ``data_mesh()`` (every visible card) against
+    the unsharded runs, and the data-parallel step at ``finetune_uav``'s
+    defaults on one NCCL rank against the plain step (phase 20).
+    ``dp_hw``, ``dp_depth`` shrink a CPU rehearsal."""
+    import torch
+
+    from apse_uav_torch.aruco import cuda_labeling, cuda_proposals
+    from apse_uav_torch.parallel import mesh as pmesh
+    from apse_uav_torch.preproc import cuda_pool, cuda_remap
+
+    devices = pmesh.data_mesh()
+    sharding = sharding_check(devices, cfg, ckpt, frames_np[:TRACK_BATCH], iters=1)
+    front = pmesh.shard_map_batch(devices, lambda fr: pipe.front(fr)["msp"])
+    sharded_front, front_counts = reset_and_read(lambda: front(frames))
+    plain_front, plain_counts = reset_and_read(lambda: pipe.front(frames)["msp"])
+    front_equal = bool(torch.equal(sharded_front.to(dev), plain_front))
+    front_kernels = (cuda_pool.NAME, cuda_remap.K3, cuda_proposals.NAME, cuda_remap.K4, cuda_labeling.NAME)
+    front_missing = [n for n in front_kernels if front_counts.get(n, 0) < len(devices)]
+    step = dp_check(finetune_dp_job(ckpt, 1, dp_hw, dp_depth), 1, dev)
+    res = {"mesh": [str(d) for d in devices], "cards": len(devices), "sharding": sharding,
+           "aruco_front_equal": front_equal, "aruco_front_launches": front_counts,
+           "aruco_front_unsharded_launches": plain_counts, "dp": step, "card": card}
+    log({"phase": "parallel", **res})
+    if not (sharding["ok"] and front_equal and step["ok"]) or front_missing:
+        raise SmokeFailure(f"parallel: sharding {sharding}, front equal {front_equal}, front kernels not launched "
+                           f"once a card {front_missing}, DP step {step}")
+    return res
+
+
+def all_cards_main(n_frames: int = 8) -> int:
+    """``--all-cards``: frame sharding of R101-FPN over every visible card
+    against card 0, and the data-parallel step at ``finetune_uav``'s defaults
+    over one NCCL process a card against the plain step on card 0 (see the
+    module docstring)."""
+    import torch
+
+    from apse_uav_torch.dcnn.config import uav_tracker_config
+    from apse_uav_torch.parallel.mesh import data_mesh
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint
+
+    card = nvidia_smi()
+    devices = data_mesh()
+    cfg = uav_tracker_config()
+    cfg = dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, score_thresh_test=0.05))
+    ckpt = detectron2_checkpoint(0, 101, 4)
+    frames_np = np.random.default_rng(0).integers(0, 255, (n_frames, 2160, 3840, 3), np.uint8)
+    results = [sharding_check(devices, cfg, ckpt, frames_np),
+               dp_check(finetune_dp_job(ckpt, len(devices)), len(devices), devices[0])]
+    for r in results:
+        log({"phase": "all_cards", **r, "card": card})
+    if not all(r["ok"] for r in results):
+        raise SmokeFailure(f"all_cards: {[r['check'] for r in results if not r['ok']]} failed")
+    print(card)
+    log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
 def scene_specs(i: int):
     from apse_uav_torch.utils.synthetic import MarkerSpec
 
@@ -1307,9 +2041,22 @@ def scene_specs(i: int):
     ]
 
 
-def main() -> int:
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    return smi[0].strip() if smi else "unknown"
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    p = argparse.ArgumentParser(description="The port's smoke run on the card(s); see the module docstring.")
+    p.add_argument("--all-cards", action="store_true",
+                   help="only frame sharding and the data-parallel step, over every visible card")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -1319,9 +2066,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    card = smi[0].strip() if smi else "unknown"
+    if args.all_cards:
+        return all_cards_main()
+    card = nvidia_smi()
     dev = torch.device("cuda", 0)
 
     from apse_uav_torch import _build
@@ -1613,7 +2360,9 @@ def main() -> int:
     }
     log({"phase": "kernels", "k3_pooled_pixels": k3.numel(), "k3_fullres_pixels": full_gray.numel(),
          "k3_fullres_ms": round(k3_full_ms, 4), "k3_fullres_kernel_ms": kernel_ms(k3_full, ("remap_kernel",)),
-         "k3_fullres_bound_ms": round(k3_full_b, 5), "random_frames_ms": {k: round(v, 4) for k, v in random_ms.items()},
+         "k3_fullres_bound_ms": round(k3_full_b, 5),
+         "k3_fullres_plain_ms": round(cuda_ms(lambda: remap.remap_gray_u8(frames, pipe.map_full), 3, 1), 4),
+         "random_frames_ms": {k: round(v, 4) for k, v in random_ms.items()},
          "gpx_per_s": {k: round(v, 3) for k, v in gpx.items()},
          "k4_selected_pixels": int(on_sel.sum()), "k4_selected_tiles": n_sel_tiles, "k4_tiles_any_frame": n_tiles_any,
          "k2_max_score_err": k2_err,
@@ -1648,8 +2397,22 @@ def main() -> int:
     # -- 11.-13. training: the association head, the detector, the learning bar --
     torch.cuda.empty_cache()
     train_assoc_phase(ckpt, card, dev)
-    train_detector_phase(ckpt, card, dev)
+    t12 = train_detector_phase(ckpt, card, dev)
     learning_phase(card, dev)
+
+    # -- 14.-20. slice 8: C4, bf16 training, surgery, COWC, selective, parallel ---
+    torch.cuda.empty_cache()
+    c4_phase(frames_np, card, dev)
+    torch.cuda.empty_cache()
+    c4_train_phase(card, dev)
+    torch.cuda.empty_cache()
+    train_bf16_phase(ckpt, t12["step_ms"], card, dev)
+    surgery_phase(frames_np[0], card, dev)
+    from apse_uav_torch.dcnn.config import uav_tracker_config
+
+    cowc_phase(ckpt, uav_tracker_config(), card, dev)
+    selective_phase(frames_np, ckpt, uav_tracker_config(), card, dev)
+    parallel_phase(frames_np, frames, pipe, ckpt, uav_tracker_config(), card, dev)
 
     print(card)
     log({"kernels": kernels})

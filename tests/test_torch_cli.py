@@ -2,10 +2,11 @@
 ``--sequence`` and ``--mots_evaluation`` modes on two tiny frames, its
 results through ``mots_eval``, ``images_to_txt`` and ``mots_vis``;
 ``detector_test`` and ``aerial_view_test``; the training CLIs
-(``finetune_uav``, ``train_association_head``, ``association_head_test``) on
-tiny fixtures, and (``slow``) ``train_association_head`` against the JAX
-CLI; ``--help`` of every ported CLI; and the device rule (``--device cuda``
-without a card raises).
+(``finetune_uav``, ``train_association_head``, ``association_head_test``,
+``finetune_segmentation``, ``finetune_faster_rcnn_aerial``) on tiny
+fixtures, and (``slow``) ``train_association_head`` against the JAX CLI;
+``aruco_detect``'s live view; ``--help`` of every ported CLI; and the device
+rule (``--device cuda`` without a card raises).
 
 Weights are seeded detectron2-format checkpoints
 (``utils.synthetic.detectron2_checkpoint``); frames are made with numpy.
@@ -23,7 +24,8 @@ from apse_uav_torch.utils.synthetic import detectron2_checkpoint
 
 SMALL = ["--min_size", "64", "--max_size", "128", "--proposal_topk", "32", "--detections", "6"]
 CLIS = ["track_uav", "tracker_test", "detector_test", "aerial_view_test", "mots_eval", "images_to_txt", "mots_vis",
-        "aruco_detect", "finetune_uav", "train_association_head", "association_head_test"]
+        "aruco_detect", "finetune_uav", "train_association_head", "association_head_test", "add_mask_head",
+        "create_coco_annotations", "finetune_coco_dataset", "finetune_faster_rcnn_aerial", "finetune_segmentation"]
 
 
 def _frames(n=2, hw=(48, 64)):
@@ -171,6 +173,110 @@ def test_finetune_uav_cli_on_cpu(tmp_path, capsys):
     assert tckpt.load_state(str(tmp_path / "run"), "last")["iteration"] == 2
 
 
+def _changed(state: dict, start: dict) -> set[str]:
+    return {k for k, v in state.items() if not np.array_equal(v.numpy(), np.asarray(start[k]))}
+
+
+def test_finetune_segmentation_cli_on_cpu(tmp_path, capsys):
+    """``finetune_segmentation`` on 5 seeded COCO images with RLE masks
+    (fold 0 of 5 held out; R50 from a seeded ``.pth``, batch 1 at 64x96, 2
+    iterations on GT proposals): only mask-head tensors change, ``last``
+    holds iteration 2, and ``--merge_into`` / ``--merge_out`` write a
+    detectron2-named ``.pkl`` holding the detector's tensors with the
+    trained mask head, which loads into the port with no key missing."""
+    from apse_uav_torch.cli import finetune_segmentation
+    from apse_uav_torch.dcnn import weights as W
+    from apse_uav_torch.dcnn.config import mask_rcnn_r50_fpn
+    from apse_uav_torch.dcnn.models.mask_rcnn import MaskRCNN
+    from apse_uav_torch.utils.synthetic import write_coco_dataset
+
+    ann, images = write_coco_dataset(str(tmp_path / "coco"), 5, (64, 96))
+    _save_pth(tmp_path / "w.pth", 4)
+    det = detectron2_checkpoint(6, 50, 4, mask_on=False)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in det.items()}}, str(tmp_path / "det.pth"))
+    argv = ["--coco_json", ann, "--coco_images", images, "--workdir", str(tmp_path / "run"), "--weights",
+            str(tmp_path / "w.pth"), "--depth", "50", "--max_iter", "2", "--test_period", "2", "--batch_size", "1",
+            "--train_size", "64", "96", "--merge_into", str(tmp_path / "det.pth"), "--merge_out",
+            str(tmp_path / "merged.pkl"), "--device", "cpu"]
+    assert finetune_segmentation.main(argv) == 0
+    assert "merged mask head into" in capsys.readouterr().out
+    state = tckpt.load_state(str(tmp_path / "run"), "last")
+    assert state["iteration"] == 2
+    start = detectron2_checkpoint(1, 50, 4)
+    changed = _changed(state["params"], start)
+    assert changed and all(k.startswith("roi_heads.mask_head.") for k in changed)
+    merged = W.load_torch_file(str(tmp_path / "merged.pkl"))
+    for k, v in merged.items():
+        want = state["params"][k].numpy() if k.startswith("roi_heads.mask_head.") else det[k]
+        np.testing.assert_array_equal(v, want, err_msg=k)
+    model = MaskRCNN(mask_rcnn_r50_fpn(4))
+    assert W.load_detectron2(model, merged) == ([], [])
+    assert finetune_segmentation.kfold_split(list(range(11)), 5, 1) == ([0, 1, 4, 5, 6, 7, 8, 9, 10], [2, 3])
+
+
+def test_finetune_faster_rcnn_aerial_cli_on_cpu(tmp_path, monkeypatch):
+    """``finetune_faster_rcnn_aerial --rpn_only`` on a seeded UAVDT tree (2
+    sequences of 2 frames of 64x96; R50 3 classes from a seeded ``.pth``,
+    masks off, batch 1, 2 iterations; the loader's train size cut to 64x96,
+    which the CLI, like the reference's, takes no flag for): ``last`` at
+    iteration 2, and only the RPN and the box head and predictor moved
+    (``to_train`` = RPN + box head)."""
+    import functools
+
+    from apse_uav_torch.cli import finetune_faster_rcnn_aerial
+    from apse_uav_torch.data import loader
+    from apse_uav_torch.utils.synthetic import write_uavdt_dataset
+
+    monkeypatch.setattr(loader, "LoaderConfig", functools.partial(loader.LoaderConfig, train_size=(64, 96),
+                                                                  min_size=64, max_size=96))
+
+    uav = write_uavdt_dataset(str(tmp_path / "uav"), 2, 2, (64, 96))
+    _save_pth(tmp_path / "w.pth", 3, mask_on=False)
+    assert finetune_faster_rcnn_aerial.main(
+        ["--uavdt_dir", uav, "--workdir", str(tmp_path / "run"), "--weights", str(tmp_path / "w.pth"),
+         "--max_iter", "2", "--test_period", "2", "--batch_size", "1", "--rpn_only", "--device", "cpu"]) == 0
+    state = tckpt.load_state(str(tmp_path / "run"), "last")
+    assert state["iteration"] == 2
+    changed = _changed(state["params"], detectron2_checkpoint(1, 50, 3, mask_on=False))
+    assert changed and all(k.startswith(("proposal_generator.", "roi_heads.box_head.", "roi_heads.box_predictor."))
+                           for k in changed)
+    assert any(k.startswith("roi_heads.box_head.") for k in changed)
+
+
+def test_aruco_live_view_shows_frames_until_q():
+    """``--display``: each annotated frame goes to one window; the ``q`` key
+    sets ``quit``, and ``close`` destroys the windows (a stand-in for cv2's
+    GUI calls)."""
+    from apse_uav_torch.cli.aruco_detect import Display
+
+    calls = []
+
+    class FakeCv2:
+        FONT_HERSHEY_SIMPLEX = 0
+
+        def __getattr__(self, name):
+            return lambda *a, **k: calls.append(name)
+
+        def waitKey(self, ms):
+            calls.append("waitKey")
+            return ord("q") if calls.count("imshow") == 2 else -1
+
+    view = Display()
+    view.cv2 = FakeCv2()
+    row = {"corners": np.zeros((4, 4, 2)), "detected": np.zeros(4, bool), "dist_aruco": np.zeros(3),
+           "altitude": 0.0, "marker_length": 0.0, "leds": 0}
+    import sys
+    from unittest import mock
+
+    with mock.patch.dict(sys.modules, {"cv2": view.cv2}):
+        view.show(np.zeros((8, 8, 3), np.uint8), row)
+        assert not view.quit
+        view.show(np.zeros((8, 8, 3), np.uint8), row)
+        assert view.quit
+        view.close()
+    assert calls.count("imshow") == 2 and calls[-1] == "destroyAllWindows"
+
+
 @pytest.fixture(scope="module")
 def assoc_files(tmp_path_factory):
     """A KITTI-MOTS tree (sequence 0001: 8 frames of 48x80, 4 objects), its
@@ -265,3 +371,26 @@ def test_cli_device_rule():
     with pytest.raises(RuntimeError, match="cuda"):
         train_association_head.main(["--instances_txt", "x", "--images", "x", "--seqmap", "x", "--weights", "x",
                                      "--workdir", "x"])
+    from apse_uav_torch.cli import finetune_coco_dataset, finetune_faster_rcnn_aerial, finetune_segmentation
+
+    for cli, argv in ((finetune_coco_dataset, ["--coco_json", "x", "--coco_images", "x", "--workdir", "x"]),
+                      (finetune_faster_rcnn_aerial, ["--uavdt_dir", "x", "--workdir", "x"]),
+                      (finetune_segmentation, ["--coco_json", "x", "--coco_images", "x", "--workdir", "x"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(argv)
+
+
+def test_surgery_and_annotation_clis_run_on_the_host(tmp_path):
+    """``add_mask_head`` and ``create_coco_annotations`` move arrays and
+    text on the host: they take no ``--device`` and run where there is no
+    card (their output is checked against JAX's in ``test_torch_surgery``)."""
+    from apse_uav_torch.cli import add_mask_head, create_coco_annotations
+
+    for cli in (add_mask_head, create_coco_annotations):
+        assert "--device" not in cli.build_parser().format_help()
+    (tmp_path / "l.csv").write_text("car,1,2,10,8,a.png,64,48\n")
+    assert create_coco_annotations.main([str(tmp_path / "l.csv"), str(tmp_path / "a.json")]) == 0
+    _save_pth(tmp_path / "d.pth", 3, mask_on=False)
+    _save_pth(tmp_path / "m.pth", 80)
+    assert add_mask_head.main(["--detector", str(tmp_path / "d.pth"), "--mask_source", str(tmp_path / "m.pth"),
+                               "--out", str(tmp_path / "o.pkl"), "--depth", "50"]) == 0

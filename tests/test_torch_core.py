@@ -53,7 +53,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'apse_uav_torch.dcnn.losses', 'apse_uav_torch.data.mot', 'apse_uav_torch.data.datasets',\n"
         "        'apse_uav_torch.data.loader', 'apse_uav_torch.train.optim', 'apse_uav_torch.train.steps',\n"
         "        'apse_uav_torch.train.loop', 'apse_uav_torch.evaluation.coco_eval', 'apse_uav_torch.cli.finetune_uav',\n"
-        "        'apse_uav_torch.cli.train_association_head', 'apse_uav_torch.cli.association_head_test'}\n"
+        "        'apse_uav_torch.cli.train_association_head', 'apse_uav_torch.cli.association_head_test',\n"
+        "        'apse_uav_torch.dcnn.models.c4', 'apse_uav_torch.data.cowc', 'apse_uav_torch.utils.profiling',\n"
+        "        'apse_uav_torch.parallel.mesh', 'apse_uav_torch.parallel.dp', 'apse_uav_torch.cli.add_mask_head',\n"
+        "        'apse_uav_torch.cli.create_coco_annotations', 'apse_uav_torch.cli.finetune_coco_dataset',\n"
+        "        'apse_uav_torch.cli.finetune_faster_rcnn_aerial', 'apse_uav_torch.cli.finetune_segmentation'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'apse_uav_tpu'))]\n"
         "assert not bad, bad\n"

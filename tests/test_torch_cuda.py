@@ -494,3 +494,63 @@ def _one_step(cfg, ckpt, images, gt, d, given=None):
                                        flax_init.prng_key(5), True, proposals=proposals, features=feats)
     return ({k: float(v) for k, v in losses.items()}, {k: v.detach().cpu() for k, v in tensors.items()},
             opt.names), given
+
+
+def test_c4_inference_cuda_matches_cpu(dev):
+    """The C4 model (a depth-26 R-C4, 3 classes, 64 -> 16 proposals, 4
+    detections) on 2 images of 128x128, card against CPU from one seeded C4
+    checkpoint, TF32 off: res2-res4 within 1e-4 of each map's max-abs, the
+    same valid detections and classes, boxes within 1e-3 px, 14x14 masks
+    within 1e-4."""
+    import dataclasses
+
+    from apse_uav_torch.dcnn import weights as W
+    from apse_uav_torch.dcnn.config import mask_rcnn_r50_c4
+    from apse_uav_torch.dcnn.engines import full_fp32
+    from apse_uav_torch.dcnn.models.c4 import build_model
+    from apse_uav_torch.utils.synthetic import detectron2_checkpoint
+
+    cfg = mask_rcnn_r50_c4(3)
+    cfg = dataclasses.replace(cfg, depth=26,
+                              rpn=dataclasses.replace(cfg.rpn, pre_nms_topk_test=64, post_nms_topk_test=16),
+                              roi=dataclasses.replace(cfg.roi, detections_per_image=4))
+    ckpt = detectron2_checkpoint(0, 26, 3, architecture="c4")
+    images = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, (2, 128, 128, 3)).astype(np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        model = build_model(cfg).eval()
+        assert W.load_detectron2(model, ckpt) == ([], [])
+        with full_fp32():
+            det, feats = model.to(d).inference(images.to(d))
+        out[d.type] = ({k: v.cpu() for k, v in det.items()}, {k: v.cpu() for k, v in feats.items()})
+    (gd, gf), (cd, cf) = out["cuda"], out["cpu"]
+    for k in ("res2", "res3", "res4"):
+        assert float((gf[k] - cf[k]).abs().max()) <= 1e-4 * float(cf[k].abs().max()), k
+    assert torch.equal(gd["valid"], cd["valid"]) and torch.equal(gd["classes"], cd["classes"])
+    torch.testing.assert_close(gd["boxes"], cd["boxes"], rtol=0, atol=1e-3)
+    torch.testing.assert_close(gd["masks"], cd["masks"], rtol=0, atol=1e-4)
+
+
+def test_dp_step_on_one_nccl_rank_matches_plain_step(dev):
+    """The data-parallel step on a one-rank NCCL group (the all-reduce of
+    one rank is the identity) against the plain step on the same card, from
+    the same weights, batch and key: losses and updated tensors within 1e-6
+    relative (atol 1e-7)."""
+    import torch.distributed as dist
+
+    from apse_uav_torch.dcnn.engines import full_fp32
+    from apse_uav_torch.parallel import dp
+
+    job = dp.dryrun_job(2)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{dp.free_port()}", world_size=1, rank=0)
+    try:
+        with full_fp32():
+            losses, state = dp.run_step(job, 0, 1, dev)
+    finally:
+        dist.destroy_process_group()
+    with full_fp32():
+        want, want_state = dp.plain_step(job, dev)
+    for k, v in want.items():
+        np.testing.assert_allclose(losses[k], v, rtol=1e-6, atol=1e-7, err_msg=k)
+    for k, v in want_state.items():
+        np.testing.assert_allclose(state[k], v, rtol=1e-6, atol=1e-7, err_msg=k)

@@ -142,12 +142,38 @@ def test_pipelined_dispatch_matches_sequential(setup):
     assert pip.frame_count == 0 and not pip.state["active"].any()
 
 
+def test_selective_predictor_matches_jax():
+    """``SelectivePredictor`` (proposals from p6 alone, anchors of p6's own
+    size) on the 3 frames of 100x160 against JAX's: identical validity and
+    classes, boxes within 0.05 px (scaled to the frames, not re-clipped),
+    scores within 1e-4, masks within 1e-3; both stage timings recorded; on
+    these frames p6 proposes other boxes than the whole pyramid does."""
+    jcfg = tiny_dcnn_config(num_classes=2)
+    ckpt = detectron2_checkpoint(0, 50, 2)
+    _, jparams = jax_mask_rcnn(jcfg, ckpt)
+    frames = e2e_frames()
+    jsel = jeng.SelectivePredictor(jcfg, jparams, E2E_HW)
+    want = jax.tree_util.tree_map(np.asarray, jsel(frames))
+    sel = teng.SelectivePredictor(port_config(jcfg), ckpt, E2E_HW, device="cpu")
+    got = sel(frames)
+    np.testing.assert_array_equal(got["valid"].numpy(), want["valid"])
+    np.testing.assert_array_equal(got["classes"].numpy(), want["classes"])
+    np.testing.assert_allclose(got["boxes"].numpy(), want["boxes"], rtol=0, atol=0.05)
+    np.testing.assert_allclose(got["scores"].numpy(), want["scores"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["masks"].numpy(), want["masks"], rtol=0, atol=1e-3)
+    assert set(sel.timings) == {"backbone", "selective_scan"} and min(sel.timings.values()) > 0
+    full, _ = sel.base(frames)
+    assert not np.array_equal(full["boxes"].numpy(), got["boxes"].numpy())
+
+
 def test_engines_raise_for_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the no-fallback rule is exercised on the CPU-only host")
     cfg = port_config(tiny_dcnn_config())
     with pytest.raises(RuntimeError, match="cuda"):
         teng.TrackPredictor(cfg, None, E2E_HW)  # the default device is cuda
+    with pytest.raises(RuntimeError, match="cuda"):
+        teng.SelectivePredictor(cfg, None, E2E_HW)
     with pytest.raises(RuntimeError, match="cuda"):
         teng.RcnnTracker(cfg, convert.tracker_config({}), None, {}, E2E_HW)
 

@@ -234,8 +234,24 @@ def test_detectron2_checkpoint_seeded_finite_and_decisive():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MaskRCNN(mask_rcnn_r101_c4(4))
+    """R101-C4 builds through ``build_model`` (as ``MaskRCNNC4``, with
+    detectron2's C4 names); ``MaskRCNN`` refuses a C4 config, and an unknown
+    architecture raises in both."""
+    from apse_uav_torch.dcnn.models.c4 import MaskRCNNC4, build_model
+
+    cfg = mask_rcnn_r101_c4(4)
+    m = build_model(cfg)
+    assert isinstance(m, MaskRCNNC4)
+    names = set(m.state_dict())
+    assert {"backbone.res4.22.conv3.weight", "roi_heads.res5.2.conv3.weight",
+            "roi_heads.box_predictor.cls_score.weight", "roi_heads.mask_head.deconv.weight"} <= names
+    assert not any(k.startswith(("backbone.res5", "backbone.bottom_up", "roi_heads.box_head")) for k in names)
+    assert isinstance(build_model(mask_rcnn_r101_fpn(4)), MaskRCNN)
+    with pytest.raises(ValueError, match="build_model"):
+        MaskRCNN(cfg)
+    for make in (build_model, MaskRCNN):
+        with pytest.raises(ValueError, match="architecture"):
+            make(dataclasses.replace(cfg, architecture="dc5"))
 
 
 # -- bfloat16 compute (compute_dtype="bfloat16") ---------------------------------
@@ -336,3 +352,17 @@ def test_bf16_inference_dtypes_match_jax(bf16_models, models):
     np.testing.assert_array_equal(det["valid"].numpy(), want["valid"])
     assert all(f.dtype == torch.bfloat16 for f in feats.values())
     assert 0.0 <= float(det["masks"].min()) and float(det["masks"].max()) <= 1.0
+
+
+def test_paste_masks_matches_jax():
+    """``roi_heads.paste_masks`` against the reference's on seeded 28x28
+    probabilities and boxes inside, across and beyond an 80x100 image (a
+    sub-pixel one too): the same boolean masks, pixel for pixel."""
+    rng = np.random.default_rng(0)
+    probs = rng.uniform(0, 1, (5, 28, 28)).astype(np.float32)
+    boxes = np.asarray([[10, 5, 40, 30], [-5, -3, 20, 18], [50, 40, 90, 70], [0, 0, 100, 80],
+                        [30.5, 20.2, 31.0, 20.9]], np.float32)
+    want = np.asarray(jrh.paste_masks(jnp.asarray(probs), jnp.asarray(boxes), (80, 100)))
+    got = trh.paste_masks(_t(probs), _t(boxes), (80, 100))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -493,3 +493,82 @@ def test_port_learns_to_ap50(tmp_path):
     header, rows = _results(tmp_path / "results.txt")
     ap50 = [r[header.index("AP50")] for r in rows]
     assert len(ap50) == 6 and max(ap50) >= 0.7, ap50
+
+
+@pytest.mark.slow
+def test_port_learns_to_ap50_bf16(tmp_path):
+    """The JAX bf16 learning regression (``test_detector_learns_to_ap50_bf16``)
+    on the port, on the CPU: the shipped bf16 regime
+    (``compute_dtype="bfloat16"``, ``head_compute_dtype="float32"``) on the
+    same scenes, 400 iterations at lr 0.005, evaluated every 50; the run
+    reaches AP50 >= 0.7 (held over the run, as the float32 test holds it:
+    the run is chaotic)."""
+    from apse_uav_torch.train.loop import finetune_detector
+    from apse_uav_torch.utils.synthetic import learning_config, learning_scenes
+
+    cfg = dataclasses.replace(learning_config(), compute_dtype="bfloat16", head_compute_dtype="float32")
+    eval_batches = [next(learning_scenes(seed=1000 + i)) for i in range(4)]
+    finetune_detector(cfg, learning_scenes(seed=0), lambda: eval_batches, str(tmp_path), max_iter=400,
+                      test_period=50, lr=0.005, seed=0, log_fn=lambda s: None, device="cpu")
+    header, rows = _results(tmp_path / "results.txt")
+    ap50 = [r[header.index("AP50")] for r in rows]
+    assert len(ap50) == 8 and max(ap50) >= 0.7, ap50
+
+
+def _jax_maps_and_proposals(jm, jp, images):
+    """The JAX model's backbone maps and training proposals (the
+    ``*_topk_train`` selection of its RPN head's float32 outputs)."""
+    from apse_uav_tpu.dcnn.models.mask_rcnn import RPN_LEVELS
+    from apse_uav_tpu.dcnn.models.rpn import select_proposals
+
+    def run(m, x):
+        feats = m.backbone(m._normalize(x))
+        logits, deltas = m.rpn_head({n: feats[n] for n in RPN_LEVELS})
+        level_shapes = {n: tuple(feats[n].shape[1:3]) for n in RPN_LEVELS}
+        boxes, _, valid = jax.vmap(lambda lg, dl: select_proposals(
+            {k: v.astype(jnp.float32) for k, v in lg.items()}, {k: v.astype(jnp.float32) for k, v in dl.items()},
+            level_shapes, x.shape[1:3], m.cfg.anchors, m.cfg.rpn, training=True))(logits, deltas)
+        return feats, boxes, valid
+
+    return jax.jit(lambda p, x: jm.apply({"params": p}, x, method=run))(jp, jnp.asarray(images))
+
+
+def test_bf16_train_step_matches_jax(tiny_models):
+    """The reference's shipped bf16 regime (``compute_dtype="bfloat16"``,
+    ``head_compute_dtype="float32"``: a bf16 backbone, float32 heads, float32
+    parameters, gradients and update, float32 at the loss boundary), one
+    frozen-backbone step against JAX's bf16 step from the same checkpoint,
+    batch and key, on JAX's bf16 maps and training proposals (the two
+    libraries' bf16 convolutions round differently, and top-k / NMS turn
+    that discrete).  The ROI losses within 1e-5 relative; the RPN losses
+    within 1e-3 relative and the update within 1e-2 of its max-abs, because
+    XLA on the CPU evaluates the float32 RPN convolution of bf16 maps at
+    bf16 precision (its p2 logits 3.0e-2 from a float64 evaluation, the
+    port's 1.4e-5).  Measured worst: RPN losses 3.4e-4, update 3.0e-3.
+    Every parameter stays float32."""
+    cfg, ckpt, _, _ = tiny_models
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", head_compute_dtype="float32")
+    jm, jp = jax_mask_rcnn(cfg, ckpt)
+    images, gt = _batch()
+    key = jax.random.PRNGKey(9)
+    to_train = ("proposal_generator", "roi_heads")
+    jtx = joptim.build_finetune_optimizer(jp, to_train, lr=joptim.warmup_multistep_schedule(0.02, (), 1, 1.0))
+    jp1, _, jl = jax.jit(lambda p, s, im, g, k: jsteps.detector_train_step(jm, jtx, p, s, im, g, k, True))(
+        jp, jtx.init(jp), jnp.asarray(images), {k: jnp.asarray(v) for k, v in gt.items()}, key)
+    feats, boxes, valid = _jax_maps_and_proposals(jm, jp, images)
+    model = MaskRCNN(port_config(cfg))
+    tW.load_detectron2(model, ckpt)
+    tensors = model.state_dict(keep_vars=True)
+    opt = toptim.build_finetune_optimizer(tensors, to_train, lr=toptim.warmup_multistep_schedule(0.02, (), 1, 1.0))
+    tsteps.trainable_only(opt.trainable(), tensors.values())
+    before = {k: v.detach().numpy().copy() for k, v in tensors.items()}
+    tl = tsteps.detector_train_step(
+        model, opt, torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in gt.items()}, np.asarray(key), True,
+        proposals=(torch.from_numpy(np.array(boxes)), torch.from_numpy(np.array(valid))),
+        features={k: torch.from_numpy(np.asarray(v).astype(np.float32)).to(torch.bfloat16) for k, v in feats.items()})
+    for k in ("loss_cls", "loss_box_reg", "loss_mask"):
+        assert abs(float(tl[k]) - float(jl[k])) <= 1e-5 * abs(float(jl[k])), (k, float(tl[k]), float(jl[k]))
+    for k in ("loss_rpn_cls", "loss_rpn_loc", "loss_total"):
+        assert abs(float(tl[k]) - float(jl[k])) <= 1e-3 * abs(float(jl[k])), (k, float(tl[k]), float(jl[k]))
+    assert all(t.dtype == torch.float32 for t in tensors.values())
+    _close_to_update({k: v.detach().numpy() for k, v in tensors.items()}, _port_flat(jp1), before, opt.names, 1e-2)

@@ -140,3 +140,46 @@ def port_config(jcfg):
     from apse_uav_torch import convert
 
     return convert.model_config(dataclasses.asdict(jcfg))
+
+
+def c4_config(depth: int = 26, num_classes: int = 3):
+    """The JAX C4 tests' small Mask R-CNN R-C4: RPN 64 -> 16 proposals, 4
+    detections; training budgets 64 -> 16 proposals, 16 / 8 samples."""
+    import dataclasses
+
+    from apse_uav_tpu.dcnn.config import mask_rcnn_r50_c4
+
+    cfg = mask_rcnn_r50_c4(num_classes=num_classes)
+    return dataclasses.replace(
+        cfg, depth=depth,
+        rpn=dataclasses.replace(cfg.rpn, pre_nms_topk_test=64, post_nms_topk_test=16, pre_nms_topk_train=64,
+                                post_nms_topk_train=16, batch_size_per_image=16),
+        roi=dataclasses.replace(cfg.roi, detections_per_image=4, batch_size_per_image=8))
+
+
+def jax_c4(cfg, checkpoint: dict):
+    """The JAX MaskRCNNC4 and its parameters from a detectron2 C4 checkpoint
+    (``map_detectron2_weights_c4`` + ``load_into_params``: every parameter
+    from the checkpoint).  The reference's mapper knows depths 50 and 101;
+    for the depth-26 trunk of these tests its block table gains that entry
+    for the call."""
+    import jax
+
+    from apse_uav_tpu.dcnn import weights as W
+    from apse_uav_tpu.dcnn.models.c4 import MaskRCNNC4
+    from apse_uav_torch.dcnn.models.resnet import STAGE_BLOCKS
+
+    model = MaskRCNNC4(cfg=cfg)
+    abstract = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)), mode="inference"))["params"]
+    added = cfg.depth not in W._STAGE_BLOCKS
+    if added:
+        W._STAGE_BLOCKS[cfg.depth] = STAGE_BLOCKS[cfg.depth]
+    try:
+        flat = W.map_detectron2_weights_c4(checkpoint, cfg.depth, cfg.mask_on)
+    finally:
+        if added:
+            del W._STAGE_BLOCKS[cfg.depth]
+    params, missing, unused = W.load_into_params(abstract, flat)
+    assert not missing and not unused, (missing[:3], unused[:3])
+    return model, params
