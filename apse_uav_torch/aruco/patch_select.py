@@ -15,6 +15,15 @@ from __future__ import annotations
 import torch
 
 
+def select_tiles(centers: torch.Tensor, valid: torch.Tensor, *, h: int, w: int, th: int, tw: int, groups: tuple,
+                 t_sel: int, per_scale_k: int):
+    """One frame: centers (K, 2) f32 yx, valid (K,) bool -> sel
+    (min(t_sel, n_tiles),) int32, covered (K,) bool (see :func:`select_tiles_batched`)."""
+    sel, covered = select_tiles_batched(centers[None], valid[None], h=h, w=w, th=th, tw=tw, groups=groups,
+                                        t_sel=t_sel, per_scale_k=per_scale_k)
+    return sel[0], covered[0]
+
+
 def select_tiles_batched(centers: torch.Tensor, valid: torch.Tensor, *, h: int, w: int, th: int, tw: int,
                          groups: tuple, t_sel: int, per_scale_k: int):
     """centers (B, K, 2) f32 yx, valid (B, K) bool ->

@@ -174,6 +174,25 @@ def _solve_pnp_planar_two(obj_pts: torch.Tensor, img_pts: torch.Tensor, mtx: tor
     return best, other, best_err_out, other_err_out, take_b
 
 
+def solve_pnp_planar(obj_pts: torch.Tensor, img_pts: torch.Tensor, mtx: torch.Tensor, dist: torch.Tensor,
+                     num_iters: int = 6, tilt: bool | None = None):
+    """Planar PnP for one marker: obj_pts (4, 3), img_pts (4, 2) px ->
+    (rvec (3,), tvec (3,)) of the basin with the smaller reprojection error."""
+    dist14 = camera.pad_dist_coeffs(dist, device=img_pts.device)
+    if tilt is None:
+        tilt = camera.has_tilt(dist14)
+    best = _solve_pnp_planar_two(obj_pts.to(torch.float32), img_pts.reshape(1, 4, 2).to(torch.float32), mtx, dist14,
+                                 num_iters, tilt)[0][0]
+    return best[:3], best[3:]
+
+
+def estimate_pose_single_markers(corners: torch.Tensor, marker_length: float, mtx: torch.Tensor, dist: torch.Tensor,
+                                 num_iters: int = 6, tilt: bool | None = None):
+    """cv2.aruco.estimatePoseSingleMarkers: corners (..., 4, 2) px (clockwise
+    from top-left) -> (rvecs (..., 3), tvecs (..., 3)) of the best basin."""
+    return estimate_pose_single_markers_two(corners, marker_length, mtx, dist, num_iters, tilt)[:2]
+
+
 def estimate_pose_single_markers_two(corners: torch.Tensor, marker_length: float, mtx: torch.Tensor,
                                      dist: torch.Tensor, num_iters: int = 6, tilt: bool | None = None):
     """Both planar-ambiguity basins for corners (..., 4, 2) px:

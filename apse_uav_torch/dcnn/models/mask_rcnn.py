@@ -40,6 +40,7 @@ from apse_uav_torch.dcnn.models.roi_heads import (POOL_LEVELS, BoxHead, BoxPredi
                                                  box_inference, crop_resize_masks, fpn_roi_align,
                                                  mask_head_loss, match_proposals_to_gt)
 from apse_uav_torch.dcnn.models.rpn import RPNHead, rpn_losses, select_proposals
+from apse_uav_torch.device import resolve_device
 
 RPN_LEVELS = ("p2", "p3", "p4", "p5", "p6")
 
@@ -258,3 +259,16 @@ class MaskRCNN(nn.Module):
         pooled = fpn_roi_align({k: feats[k] for k in POOL_LEVELS}, boxes, roi.box_pooler_resolution,
                                roi.pooler_sampling_ratio)
         return self.roi_heads.box_head(pooled.reshape(nb * n, -1)).reshape(nb, n, -1)
+
+
+def build_mask_rcnn(cfg: ModelConfig, device="cuda") -> MaskRCNN:
+    """The R-FPN model of ``cfg`` on ``device``, in eval mode (load its
+    weights with :func:`apse_uav_torch.dcnn.weights.load_detectron2`)."""
+    return MaskRCNN(cfg).to(resolve_device(device)).eval()
+
+
+def run_inference(model: MaskRCNN, images: torch.Tensor):
+    """The inference entry: images (B, H, W, 3) float32 BGR on the model's
+    device -> (detections, backbone maps), without autograd."""
+    with torch.no_grad():
+        return model.inference(images)

@@ -28,7 +28,7 @@ from apse_uav_torch.dcnn.models.resnet import conv
 from apse_uav_torch.dcnn.models.rpn import smooth_l1, subsample_labels, take_rows
 from apse_uav_torch.dcnn.ops import apply_deltas, box_iou, clip_boxes, get_deltas
 from apse_uav_torch.dcnn.ops.nms import batched_nms, descending_order
-from apse_uav_torch.dcnn.ops.roi_align import sample_grid
+from apse_uav_torch.dcnn.ops.roi_align import roi_align_hwc, sample_grid
 
 POOL_LEVELS = ("p2", "p3", "p4", "p5")
 CANONICAL_LEVEL = 4
@@ -52,6 +52,23 @@ def _level_tables(level_hw: tuple, device: str):
             torch.tensor([w for _, w in level_hw], dtype=torch.int64, device=device),
             torch.tensor(np.cumsum([0] + sizes[:-1]), dtype=torch.int64, device=device),
             torch.tensor([1.0 / (4 * 2**i) for i in range(len(level_hw))], dtype=torch.float32, device=device))
+
+
+def fpn_roi_align_dense(feats: dict[str, torch.Tensor], boxes: torch.Tensor, resolution: int,
+                        sampling_ratio: int) -> torch.Tensor:
+    """The reference's formulation of :func:`fpn_roi_align`, kept as its
+    oracle: every box pooled on every level from bfloat16 rows, then each
+    box's assigned level selected.  feats[p2..p5] (B, H, W, C), boxes (B, N, 4)
+    -> (B, N, C, R, R) float32."""
+    lvl = assign_boxes_to_levels(boxes)
+    out = []
+    for b in range(boxes.shape[0]):
+        pooled = torch.stack([
+            roi_align_hwc(feats[name][b].to(torch.bfloat16), boxes[b], resolution, 1.0 / (4 * 2**i), sampling_ratio,
+                          aligned=True).to(torch.float32)
+            for i, name in enumerate(POOL_LEVELS)])  # (4, N, C, R, R)
+        out.append(pooled[lvl[b], torch.arange(boxes.shape[1], device=boxes.device)])
+    return torch.stack(out)
 
 
 def fpn_roi_align(feats: dict[str, torch.Tensor], boxes: torch.Tensor, resolution: int,

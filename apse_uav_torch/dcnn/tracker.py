@@ -287,6 +287,16 @@ def prepare_frame(det: dict, feats_p2: torch.Tensor, head: AssociationHead, cfg:
     return det, detection_embeddings(head, feats_p2, det, image_hw, cfg.roi_size)
 
 
+def tracker_step(state: dict, det: dict, feats_p2: torch.Tensor, head: AssociationHead, cfg: TrackerConfig,
+                 image_hw: tuple[int, int]):
+    """One frame (``RcnnTracker.next_frame``): cap and embed the detections
+    (:func:`prepare_frame`), then associate, prune, snapshot and age
+    (:func:`tracker_step_assoc`).  det fields (D, ...), feats_p2 (H4, W4, C);
+    returns (new_state, recent_objects)."""
+    det, emb = prepare_frame({k: v[None] for k, v in det.items()}, feats_p2[None], head, cfg, image_hw)
+    return tracker_step_assoc(state, {k: v[0] for k, v in det.items()}, emb[0], cfg, image_hw)
+
+
 def tracker_step_assoc(state: dict, det: dict, emb: torch.Tensor, cfg: TrackerConfig,
                        image_hw: tuple[int, int]):
     """The state-carrying half of a tracker step (one frame): associate by

@@ -5,7 +5,9 @@ ordered list of ``torch.device``s (one data axis): there is no partitioner,
 so each wrapper runs one replica per device on its own chunk of the batch's
 leading axis, with no collective on the forward path, and concatenates the
 results in device order.  The batch must be a multiple of the mesh size, as
-in the reference.
+in the reference.  The reference's ``batch_sharding`` (a ``NamedSharding``
+that XLA's partitioner applies) is here :func:`batch_sharding`, the explicit
+map of rows to devices that :func:`shard_batch` applies.
 
 These wrappers split the work; they give no speedup.  The chunks run in turn
 from the calling thread, and the port's inference waits on its device at its
@@ -52,23 +54,32 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def batch_sharding(mesh: list[torch.device], batch_size: int) -> list[tuple[torch.device, slice]]:
+    """Which rows of a batch go to which device: one (device, rows) pair per
+    device of ``mesh``, in order, each an equal contiguous chunk of the
+    leading axis.  The counterpart of the reference's ``NamedSharding(mesh,
+    P("data"))``: with no partitioner the sharding is this explicit row map,
+    which :func:`shard_batch` applies."""
+    n = len(mesh)
+    if batch_size % n:
+        raise ValueError(f"batch of {batch_size} is not a multiple of the mesh size {n}")
+    per = batch_size // n
+    return [(dev, slice(i * per, (i + 1) * per)) for i, dev in enumerate(mesh)]
+
+
 def shard_batch(mesh: list[torch.device], tree: Any) -> list[Any]:
     """A batch (a tensor or numpy array, or a dict / list / tuple of them,
     all with the same leading size) -> one tree per device of ``mesh``: its
-    chunk of the leading axis, on that device."""
+    rows of :func:`batch_sharding`, on that device."""
     sizes = set()
     _map(tree, lambda x: sizes.add(int(x.shape[0])))
     (b,) = sizes
-    n = len(mesh)
-    if b % n:
-        raise ValueError(f"batch of {b} is not a multiple of the mesh size {n}")
-    per = b // n
 
-    def chunk(i):
+    def chunk(dev, rows):
         return _map(tree, lambda x: torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)[
-            i * per:(i + 1) * per].to(mesh[i]))
+            rows].to(dev))
 
-    return [chunk(i) for i in range(n)]
+    return [chunk(dev, rows) for dev, rows in batch_sharding(mesh, b)]
 
 
 def _concat(outs: list[Any], device: torch.device):

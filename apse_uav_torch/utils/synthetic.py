@@ -1,15 +1,20 @@
 """Synthetic UAV test-track scenes rendered through the real camera model.
 
-Counterpart of ``render_scene`` in the JAX reference's ``utils/synthetic.py``, in
-float64 PyTorch on any device, so a 4K scene renders on the card in well
-under a second.  ArUco markers (DICT_4X4_50) on vehicle roofs are seen from
-altitude through the inverse of the 14-coefficient lens model, supersampled
-and box-filtered; the host car carries the 8-LED panel.
+Counterpart of the JAX reference's ``utils/synthetic.py`` on any device, so a
+4K scene renders on the card in well under a second: ``render_scene`` in
+float64, the bench renderer ``SceneRenderer`` in float32 as the reference's,
+and the ground truth (``marker_world_corners``,
+``project_world_to_undistorted``) in float64 numpy.  ArUco markers
+(DICT_4X4_50) on vehicle roofs are seen from altitude through the inverse of
+the 14-coefficient lens model, supersampled and box-filtered; the host car
+carries the 8-LED panel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 
 import numpy as np
 import torch
@@ -43,11 +48,16 @@ class MarkerSpec:
     leds: int | None = None  # 8-bit LED panel value (host car only)
 
 
-def _undistort(xd: torch.Tensor, yd: torch.Tensor, dist, num_iters: int = 25):
-    """Fixed-point lens inversion, bounded so far corners stay finite."""
+def _dist12(dist) -> list[float]:
+    """The first 12 of the 14 distortion coefficients, zero-padded, as floats."""
     d = np.zeros(14)
     d[: np.asarray(dist).size] = np.asarray(dist, np.float64).reshape(-1)
-    k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4 = (float(v) for v in d[:12])
+    return [float(v) for v in d[:12]]
+
+
+def _undistort(xd: torch.Tensor, yd: torch.Tensor, dist, num_iters: int = 25):
+    """Fixed-point lens inversion, bounded so far corners stay finite."""
+    k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4 = _dist12(dist)
     x, y = xd.clone(), yd.clone()
     lim = float(2.0 * max(xd.abs().max().item(), yd.abs().max().item()) + 1.0)
     for _ in range(num_iters):
@@ -115,6 +125,202 @@ def render_scene(mtx, dist, size_wh: tuple[int, int], markers: list[MarkerSpec],
     img = img.reshape(h, ss, w, ss).mean(dim=(1, 3))
     img = torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
     return img[..., None].expand(h, w, 3).contiguous()
+
+
+def _scene_grids(mtx, dist, w: int, h: int, ss: int, altitude: float, cam_yaw_deg: float, distorted: bool,
+                 device: torch.device):
+    """World-coordinate grids and the asphalt base of :class:`SceneRenderer`,
+    float32 on ``device``: the reference's 25-step fixed point with its
+    ``lim`` clamp, then the re-distortion test that blanks the lens'
+    non-invertible zone to plain asphalt at world coordinates 1e9."""
+    k1, k2, p1, p2, k3, k4, k5, k6, s1, s2, s3, s4 = _dist12(dist)
+    fx, fy, cx, cy = float(mtx[0, 0]), float(mtx[1, 1]), float(mtx[0, 2]), float(mtx[1, 2])
+    cy_r, sy_r = float(np.cos(np.radians(cam_yaw_deg))), float(np.sin(np.radians(cam_yaw_deg)))
+    f32 = dict(dtype=torch.float32, device=device)
+    u = (torch.arange(w * ss, **f32) + 0.5) / ss - 0.5
+    v = (torch.arange(h * ss, **f32) + 0.5) / ss - 0.5
+    xd = ((u[None, :] - cx) / fx).expand(h * ss, w * ss)
+    yd = ((v[:, None] - cy) / fy).expand(h * ss, w * ss)
+    if distorted:
+        lim = 2.0 * torch.maximum(xd.abs().max(), yd.abs().max()) + 1.0
+        x, y = xd, yd
+        for _ in range(25):
+            r2 = x * x + y * y
+            r4 = r2 * r2
+            r6 = r4 * r2
+            icdist = (1 + k4 * r2 + k5 * r4 + k6 * r6) / (1 + k1 * r2 + k2 * r4 + k3 * r6)
+            ddx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x) + s1 * r2 + s2 * r4
+            ddy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y + s3 * r2 + s4 * r4
+            x = torch.minimum(torch.maximum((xd - ddx) * icdist, -lim), lim)
+            y = torch.minimum(torch.maximum((yd - ddy) * icdist, -lim), lim)
+        r2 = x * x + y * y
+        r4 = r2 * r2
+        r6 = r4 * r2
+        rad = (1 + k1 * r2 + k2 * r4 + k3 * r6) / (1 + k4 * r2 + k5 * r4 + k6 * r6)
+        xd2 = x * rad + 2 * p1 * x * y + p2 * (r2 + 2 * x * x) + s1 * r2 + s2 * r4
+        yd2 = y * rad + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y + s3 * r2 + s4 * r4
+        valid = ((xd2 - xd).abs() < 1e-3) & ((yd2 - yd).abs() < 1e-3)
+        del r2, r4, r6, rad, xd2, yd2
+    else:
+        x, y = xd, yd
+        valid = torch.ones(xd.shape, dtype=torch.bool, device=device)
+    xw = altitude * (cy_r * x - sy_r * y)
+    yw = altitude * (sy_r * x + cy_r * y)
+    base = ASPHALT + 8.0 * torch.sin(xw * 1.7) * torch.cos(yw * 2.3)
+    sentinel = torch.full((), 1e9, **f32)
+    return (torch.where(valid, xw, sentinel), torch.where(valid, yw, sentinel),
+            torch.where(valid, base, torch.full((), ASPHALT, **f32)))
+
+
+class SceneRenderer:
+    """Multi-frame renderer for a fixed camera, the reference's bench renderer:
+    the lens inversion and the asphalt base render once (float32 grids on
+    ``device``), and each frame repaints only a fixed-size patch around each
+    vehicle.
+
+    It follows the reference's ``SceneRenderer``, not :func:`render_scene`:
+    the grids are float32, and the lens' non-invertible zone (where the fixed
+    point fails the re-distortion test) is plain asphalt, where
+    ``render_scene`` keeps its clamped float64 fixed point.  A marker whose
+    patch does not fit in the frame is skipped.  With ``cache`` the grids are
+    kept in an ``.npz`` under ``~/.cache/apse_uav_torch``, keyed by camera
+    and geometry.
+
+    Example:
+        r = SceneRenderer(mtx, dist, (3840, 2160), altitude=40.0, cache=False)
+        frame = r.render([MarkerSpec(4, (0.5, -2.0), leds=0b10110010)])  # (2160, 3840, 3) u8 on cuda
+    """
+
+    BLOCK = 128
+
+    def __init__(self, mtx, dist, size_wh: tuple[int, int], altitude: float = 40.0, cam_yaw_deg: float = 0.0,
+                 supersample: int = 2, distorted: bool = True, cache: bool = True, device="cuda"):
+        self.device = resolve_device(device)
+        w, h = size_wh
+        self.size_wh = size_wh
+        self.ss = supersample
+        self.altitude = altitude
+        mtx = np.asarray(mtx, np.float64)
+        dist = np.asarray(dist, np.float64)
+        cache_path = None
+        if cache:
+            geometry = f"{size_wh}-{altitude}-{cam_yaw_deg}-{supersample}-{distorted}-v2"
+            key = hashlib.sha256(mtx.tobytes() + dist.tobytes() + geometry.encode()).hexdigest()[:16]
+            cache_path = os.path.join(os.path.expanduser("~"), ".cache", "apse_uav_torch", f"scene_{key}.npz")
+            if os.path.exists(cache_path):
+                z = np.load(cache_path)
+                self.xw, self.yw, self.base = (torch.from_numpy(z[k]).to(self.device) for k in ("xw", "yw", "base"))
+                self._finish_init()
+                return
+        self.xw, self.yw, self.base = _scene_grids(mtx, dist, w, h, supersample, float(altitude), float(cam_yaw_deg),
+                                                   bool(distorted), self.device)
+        if cache_path is not None:
+            os.makedirs(os.path.dirname(cache_path), exist_ok=True)
+            np.savez(cache_path + ".tmp.npz", **{k: getattr(self, k).cpu().numpy() for k in ("xw", "yw", "base")})
+            os.replace(cache_path + ".tmp.npz", cache_path)
+        self._finish_init()
+
+    def _finish_init(self) -> None:
+        # Per-block world extents (the 1e9 sentinel excluded), kept on the host:
+        # a vehicle's pixel slice is then a scan over ~2k blocks.
+        b = self.BLOCK
+        gh, gw = self.xw.shape
+        ph, pw = -gh % b, -gw % b
+
+        def red(a, fn, fill):
+            a = torch.where(a.abs() < 1e8, a, torch.full((), fill, dtype=a.dtype, device=a.device))
+            a = torch.nn.functional.pad(a, (0, pw, 0, ph), value=fill)
+            return fn(a.reshape((gh + ph) // b, b, (gw + pw) // b, b), dim=(1, 3)).cpu().numpy()
+
+        inf = float("inf")
+        self._bx_min, self._bx_max = red(self.xw, torch.amin, inf), red(self.xw, torch.amax, -inf)
+        self._by_min, self._by_max = red(self.yw, torch.amin, inf), red(self.yw, torch.amax, -inf)
+        # Fixed patch side: the largest vehicle footprint at this scale, measured
+        # at the image centre (distortion compresses the corners).
+        ch, cw = gh // 2, gw // 2
+        px_per_m = 1.0 / max(abs(float(self.xw[ch, cw + 1] - self.xw[ch, cw])), 1e-9)
+        self._PS = min(int(-(-int(2 * 3.8 * px_per_m + 2 * b) // b) * b), (gh // b) * b, (gw // b) * b)
+        self._led_xy = torch.tensor(LED_OFFSETS, dtype=torch.float32, device=self.device)
+
+    def _world_bbox_slice(self, spec: MarkerSpec, margin: float = 1.0):
+        """Supersampled-pixel slice covering the vehicle's world extent, or None."""
+        rw_, rl = spec.roof_halfsize
+        r = float(np.hypot(rw_, rl)) + margin
+        mx0, my0 = spec.center_xy
+        hit = ((self._bx_min <= mx0 + r) & (self._bx_max >= mx0 - r)
+               & (self._by_min <= my0 + r) & (self._by_max >= my0 - r))
+        ys, xs = np.nonzero(hit.any(axis=1))[0], np.nonzero(hit.any(axis=0))[0]
+        if len(ys) == 0 or len(xs) == 0:
+            return None
+        b = self.BLOCK
+        gh, gw = self.xw.shape
+        return slice(ys[0] * b, min((ys[-1] + 1) * b, gh)), slice(xs[0] * b, min((xs[-1] + 1) * b, gw))
+
+    def _paint_patch(self, img_p, xw_p, yw_p, spec: MarkerSpec):
+        """The reference's float32 patch painter: roof, marker cells, LEDs
+        (a slot with a negative value is off)."""
+        f32 = lambda v: float(np.float32(v))  # noqa: E731  the reference passes float32 scalars
+        yaw = np.radians(spec.yaw_deg)
+        cx_, cy_ = f32(spec.center_xy[0]), f32(spec.center_xy[1])
+        cos_, sin_ = f32(np.cos(yaw)), f32(np.sin(yaw))
+        lx = cos_ * (xw_p - cx_) + sin_ * (yw_p - cy_)
+        ly = -sin_ * (xw_p - cx_) + cos_ * (yw_p - cy_)
+        full = lambda v: torch.full((), v, dtype=torch.float32, device=img_p.device)  # noqa: E731
+        out = torch.where((lx.abs() <= f32(spec.roof_halfsize[0])) & (ly.abs() <= f32(spec.roof_halfsize[1])),
+                          full(ROOF), img_p)
+        half = MARKER_LEN / 2.0
+        inside = (lx.abs() <= half) & (ly.abs() <= half)
+        gx = torch.clamp(((lx + half) / MARKER_LEN * 6).to(torch.int32), 0, 5).long()
+        gy = torch.clamp(((ly + half) / MARKER_LEN * 6).to(torch.int32), 0, 5).long()
+        pattern = torch.as_tensor(marker_image(spec.marker_id), device=img_p.device)
+        out = torch.where(inside, torch.where(pattern[gy, gx] > 127, full(MARKER_WHITE), full(MARKER_BLACK)), out)
+        if spec.leds is not None:
+            for j in range(8):
+                d2 = (lx - self._led_xy[j, 0]) ** 2 + (ly + self._led_xy[j, 1]) ** 2
+                on = (spec.leds >> (7 - j)) & 1
+                out = torch.where(d2 <= 0.06**2, full(LED_ON if on else LED_OFF), out)
+        return out
+
+    def render(self, markers: list[MarkerSpec]) -> torch.Tensor:
+        """One frame: (H, W, 3) uint8 on the renderer's device."""
+        img = self.base.clone()
+        gh, gw = img.shape
+        ps = self._PS
+        for spec in markers:
+            sl = self._world_bbox_slice(spec)
+            if sl is None:
+                continue
+            y0 = min(sl[0].start, max(gh - ps, 0))
+            x0 = min(sl[1].start, max(gw - ps, 0))
+            if (min(ps, gh - y0), min(ps, gw - x0)) != (ps, ps):
+                continue  # degenerate geometry (the frame is smaller than a patch)
+            sy, sx = slice(y0, y0 + ps), slice(x0, x0 + ps)
+            img[sy, sx] = self._paint_patch(img[sy, sx], self.xw[sy, sx], self.yw[sy, sx], spec)
+        w, h = self.size_wh
+        out = img.reshape(h, self.ss, w, self.ss).mean(dim=(1, 3))
+        out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+        return out[..., None].expand(h, w, 3).contiguous()
+
+
+def marker_world_corners(spec: MarkerSpec) -> np.ndarray:
+    """World coordinates (4, 2) float64 of the marker's corners in OpenCV's
+    detection order (top-left, top-right, bottom-right, bottom-left of the
+    canonical marker, whose top row lies at negative marker-frame y)."""
+    halfm = MARKER_LEN / 2.0
+    local = np.array([[-halfm, -halfm], [halfm, -halfm], [halfm, halfm], [-halfm, halfm]])
+    yaw = np.radians(spec.yaw_deg)
+    c, s = np.cos(yaw), np.sin(yaw)
+    return local @ np.array([[c, -s], [s, c]]).T + np.asarray(spec.center_xy)
+
+
+def project_world_to_undistorted(pts_xy: np.ndarray, mtx, altitude: float, cam_yaw_deg: float = 0.0) -> np.ndarray:
+    """Ground-truth pixel positions (N, 2) float64 of world points (N, 2) in
+    the undistorted image of the nadir camera at ``altitude``."""
+    mtx = np.asarray(mtx, np.float64)
+    cy_r, sy_r = np.cos(np.radians(cam_yaw_deg)), np.sin(np.radians(cam_yaw_deg))
+    x_c = cy_r * pts_xy[:, 0] + sy_r * pts_xy[:, 1]
+    y_c = -sy_r * pts_xy[:, 0] + cy_r * pts_xy[:, 1]
+    return np.stack([x_c / altitude * mtx[0, 0] + mtx[0, 2], y_c / altitude * mtx[1, 1] + mtx[1, 2]], axis=-1)
 
 
 def _spiral(win: int) -> np.ndarray:
@@ -321,8 +527,6 @@ def write_mots_sequence(instances_dir: str, images_dir: str, seq: str, frames: n
     """KITTI-MOTS layout: ``images_dir/seq/%06d.png`` and the RLE instances
     file ``instances_dir/seq.txt`` (frame, id = class * 1000 + track, class,
     h, w, RLE); needs PIL."""
-    import os
-
     from PIL import Image
 
     from apse_uav_torch.evaluation import rle
@@ -341,8 +545,6 @@ def write_mots_sequence(instances_dir: str, images_dir: str, seq: str, frames: n
 def write_mot_sequence(seq_dir: str, frames: np.ndarray, objects) -> None:
     """MOT17 layout: ``img1/%06d.jpg`` (frames from 1), ``gt/gt.txt`` rows
     ``frame,id,x,y,w,h,1,class,1`` and ``seqinfo.ini``; needs PIL."""
-    import os
-
     from PIL import Image
 
     os.makedirs(os.path.join(seq_dir, "img1"), exist_ok=True)
@@ -470,7 +672,6 @@ def write_coco_dataset(root: str, n_images: int, hw: tuple[int, int], seed: int 
     ``images/`` and ``annotations.json`` whose objects (4 categories) carry
     box-filled RLE segmentations.  Returns (json path, image directory)."""
     import json
-    import os
 
     from PIL import Image
 
@@ -500,8 +701,6 @@ def write_uavdt_dataset(root: str, n_seqs: int, n_frames: int, hw: tuple[int, in
     """Seeded scenes in UAVDT's layout under ``root``: ``M01{k:02d}/img{t:06d}.jpg``
     frames and ``M01{k:02d}_gt_whole.txt`` rows (frame, target id, x, y, w,
     h, out of view, occlusion, category 1-3).  Returns ``root``."""
-    import os
-
     from PIL import Image
 
     for k in range(n_seqs):

@@ -189,6 +189,38 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    Phases 14-19 reach no kernel of ``csrc``: each is run with the
                    launch counts set to 0 just before and prints them (all 0);
                    phase 20 prints the sharded and unsharded front's counts.
+21. operating_point -- the 4K operating point against ground truth: the ten
+                   scenes of ``OP_SCENES`` (seven at 40 m with yaw 0, 15, ..., 90;
+                   the yaw-30 scene at 25, 50 and 65 m; the four vehicles of
+                   tests/test_aruco_operating_point.py, host LEDs 0b10110010)
+                   rendered on the card by the port's ``SceneRenderer``
+                   (3840x2160, supersample 2, ``data/cam_params.json``).  Each
+                   scene is a first frame with a fresh carry through the
+                   two-pass ``ArucoPipeline`` (the colour table, K5, K3 pooled,
+                   K2, K4, K1) and the single-pass one (the colour table, K3 on
+                   the full frame, K2, K1), counts set to 0 before each run and
+                   the pipeline built in it; every kernel of the path must
+                   launch.  Held to the renderer's geometry (``score_scene``):
+                   ids 1-4 present in every scene; the corners against
+                   ``project_world_to_undistorted(marker_world_corners(spec))``
+                   within 0.5 px mean a scene and 1.5 px worst, the mean signed
+                   error of each axis over the scenes within +-0.1 px (the JAX
+                   package's own figures and test bounds); ``dist_aruco`` of
+                   vehicles 1-3 against the world distance of their marker
+                   centres from the host's within ``OP_DIST_M``; the LEDs
+                   decode to 0b10110010 at every altitude.  Prints the errors
+                   of the marker side, of the pose's range and of the altitude
+                   column, the phase's seconds and each process call's ms, and
+                   writes every scene's scores to ``OUT_DIR/operating_point.json``.
+                   The JAX package on the same ten scenes, rendered by its own
+                   ``SceneRenderer``, through its two-pass pipeline on the XLA
+                   path on the CPU (``scripts/operating_point_jax.py``): worst
+                   scene mean 0.42233 px and worst corner 1.06358 px (both at
+                   25 m), signed bias (-0.00083, -0.00752) px, worst
+                   ``dist_aruco`` error 0.61613 m (65 m, vehicle 2; the paper's
+                   bound is 0.5 m), the LEDs 0b10110010 in all ten scenes.  So
+                   ``OP_DIST_M`` is 0.61613 + 0.02 m, and the 65 m LEDs are
+                   required too.
 
 ``python3 chip_smoke.py --all-cards`` runs only frame sharding and the
 data-parallel step, over every visible card (four on a four-card machine):
@@ -2041,6 +2073,157 @@ def scene_specs(i: int):
     ]
 
 
+# Phase 21, the operating point: seven yaws at 40 m and the yaw-30 scene at
+# 25, 50 and 65 m (tests/test_aruco_operating_point.py), host LEDs 0b10110010.
+OP_LEDS = 0b10110010
+OP_SCENES = tuple((40.0, float(yaw)) for yaw in range(0, 91, 15)) + ((25.0, 30.0), (50.0, 30.0), (65.0, 30.0))
+# Corner error against the rendered truth: per-scene mean and worst corner
+# (px), and the mean signed error of each axis over all scenes (px).
+OP_MEAN_PX, OP_WORST_PX, OP_BIAS_PX = 0.5, 1.5, 0.1
+# dist_aruco against the world distance of the marker centres: the JAX
+# package's worst error on the same ten scenes plus 0.02 m (see phase 21).
+OP_JAX_DIST_ERR = 0.6161317932311636
+OP_DIST_M = OP_JAX_DIST_ERR + 0.02
+OP_PAPER_M = 0.5
+# Altitudes whose frames must decode the LEDs: all four, as the JAX package
+# decodes 0b10110010 on every one of the ten scenes.
+OP_LED_ALTS = (25.0, 40.0, 50.0, 65.0)
+
+
+def op_specs(yaw: float):
+    """The operating point's four vehicles at camera-relative yaw ``yaw``."""
+    from apse_uav_torch.utils.synthetic import MarkerSpec
+
+    return [
+        MarkerSpec(4, (0.5, -2.0), yaw_deg=yaw + 4.0, leds=OP_LEDS),
+        MarkerSpec(1, (7.5, 3.0), yaw_deg=yaw - 12.0),
+        MarkerSpec(2, (-9.0, 2.0), yaw_deg=yaw + 30.0),
+        MarkerSpec(3, (4.0, -6.5), yaw_deg=yaw + 75.0),
+    ]
+
+
+def score_scene(out: dict, specs, mtx, altitude: float) -> dict:
+    """One scene's pipeline outputs (numpy, frame 0 of a first frame) against
+    the renderer's geometry: the corners of ids 1-4 against their projected
+    world corners, the marker side (px) against the true quad's, the pose's
+    range at the true marker length and the ``altitude`` column against the
+    altitude, and dist_aruco of vehicles 1-3 against the world distance of
+    their marker centres from the host's."""
+    from apse_uav_torch.utils.synthetic import MARKER_LEN, marker_world_corners, project_world_to_undistorted
+
+    by_id = {s.marker_id: s for s in specs}
+    truth = np.stack([project_world_to_undistorted(marker_world_corners(by_id[m]), mtx, altitude)
+                      for m in range(1, 5)])  # (4 ids, 4 corners, 2)
+    err = out["corners"][0].astype(np.float64) - truth
+    dist_px = np.linalg.norm(err, axis=-1)
+    side = np.linalg.norm(truth - np.roll(truth, -1, axis=1), axis=-1).mean(-1)
+    host = np.asarray(by_id[4].center_xy)
+    dist_true = np.array([np.linalg.norm(np.asarray(by_id[v].center_xy) - host) for v in (1, 2, 3)])
+    tz = out["tvec"][0, 3, 2] * MARKER_LEN / out["marker_length"][0]
+    return {
+        "present": out["measured"][0].tolist(),
+        "corner_mean_px": float(dist_px.mean()), "corner_worst_px": float(dist_px.max()),
+        "corner_signed_sum_px": err.reshape(-1, 2).sum(0).tolist(), "n_corners": int(dist_px.size),
+        "marker_side_err_px": (out["msp_avg"][0] - side).tolist(),
+        "pose_range_err_m": float(tz - altitude), "altitude_column_err_m": float(out["altitude"][0] - altitude),
+        "dist_aruco_err_m": (out["dist_aruco"][0] - dist_true).tolist(), "leds": int(out["leds"][0]),
+    }
+
+
+def op_summary(scores: list[dict]) -> dict:
+    """Over the scenes: the worst per-scene mean and the worst corner (px),
+    the mean signed error of each axis (px) and the worst |dist_aruco| error (m)."""
+    n = sum(s["n_corners"] for s in scores)
+    return {"corner_mean_px_worst_scene": max(s["corner_mean_px"] for s in scores),
+            "corner_worst_px": max(s["corner_worst_px"] for s in scores),
+            "corner_bias_px": (np.sum([s["corner_signed_sum_px"] for s in scores], axis=0) / n).tolist(),
+            "dist_aruco_worst_m": max(max(abs(e) for e in s["dist_aruco_err_m"]) for s in scores)}
+
+
+def operating_point_phase(mtx, dist, card: str, dev, size=(W, H)) -> dict:
+    """Phase 21: the ten scenes of ``OP_SCENES`` rendered by the port's
+    ``SceneRenderer`` on the card, each a first frame with a fresh carry
+    through the two-pass and the single-pass ``ArucoPipeline`` (counts set to
+    0 before each run, the pipeline built in it, so its colour table counts),
+    held against ground truth (``score_scene``)."""
+    from apse_uav_torch import _build
+    from apse_uav_torch.aruco import cuda_labeling, cuda_proposals
+    from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
+    from apse_uav_torch.device import synchronize
+    from apse_uav_torch.preproc import cuda_pool, cuda_remap
+    from apse_uav_torch.utils.synthetic import SceneRenderer
+
+    t_phase = time.perf_counter()
+    frames, renderer = [], None
+    t0 = time.perf_counter()
+    for alt, yaw in OP_SCENES:
+        if renderer is None or renderer.altitude != alt:
+            renderer = SceneRenderer(mtx, dist, size, altitude=alt, supersample=2, cache=False, device=dev)
+        frames.append(renderer.render(op_specs(yaw)).permute(2, 0, 1)[None].contiguous())
+    synchronize(dev)
+    render_s = time.perf_counter() - t0
+    del renderer
+    paths = (("two_pass", ArucoPipelineConfig(), (cuda_remap.TABLE, cuda_pool.NAME, cuda_remap.K3,
+                                                  cuda_proposals.NAME, cuda_remap.K4, cuda_labeling.NAME)),
+             ("single_pass", ArucoPipelineConfig(two_pass=False), (cuda_remap.TABLE, cuda_remap.K3,
+                                                                   cuda_proposals.NAME, cuda_labeling.NAME)))
+    result = {"phase": "operating_point", "size": list(size), "render_s": render_s}
+    details = {}
+    for name, cfg, names in paths:
+        scores = []
+        for (alt, yaw), frame in zip(OP_SCENES, frames):
+            _build.reset_counts()
+            pipe = ArucoPipeline(mtx, dist, size, cfg, device=dev)
+            carry = init_carry(cfg, dev)
+            synchronize(dev)
+            t0 = time.perf_counter()
+            _, out = pipe.process(frame, carry, first=True)
+            synchronize(dev)
+            call_ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(_build.launches)
+            missing = [n for n in names if counts.get(n, 0) == 0]
+            if missing:
+                raise SmokeFailure(f"operating point {name} at {alt} m, yaw {yaw}: kernels not launched: {missing}")
+            s = score_scene({k: v.cpu().numpy() for k, v in out.items()}, op_specs(yaw), mtx, alt)
+            s.update({"scene": [alt, yaw], "call_ms": call_ms, "launches": counts})
+            scores.append(s)
+        details[name] = scores
+        summary = op_summary(scores)
+        # One row a scene: altitude, yaw, corner mean and worst (px), worst
+        # |dist_aruco| error (m), LEDs, ms of the process call.
+        result[name] = {**summary, "scenes": [
+            [*s["scene"], s["corner_mean_px"], s["corner_worst_px"], max(abs(e) for e in s["dist_aruco_err_m"]),
+             s["leds"], s["call_ms"]] for s in scores],
+            "marker_side_err_px_range": [min(min(s["marker_side_err_px"]) for s in scores),
+                                         max(max(s["marker_side_err_px"]) for s in scores)],
+            "pose_range_err_m": [s["pose_range_err_m"] for s in scores],
+            "altitude_column_err_m": [s["altitude_column_err_m"] for s in scores]}
+        fails = []
+        for s in scores:
+            alt, yaw = s["scene"]
+            if not all(s["present"]):
+                fails.append(f"{alt} m yaw {yaw}: ids present {s['present']}")
+            if s["corner_mean_px"] > OP_MEAN_PX or s["corner_worst_px"] > OP_WORST_PX:
+                fails.append(f"{alt} m yaw {yaw}: corners mean {s['corner_mean_px']:.4f} px, worst "
+                             f"{s['corner_worst_px']:.4f} px (limits {OP_MEAN_PX}, {OP_WORST_PX})")
+            if max(abs(e) for e in s["dist_aruco_err_m"]) > OP_DIST_M:
+                fails.append(f"{alt} m yaw {yaw}: dist_aruco errors {s['dist_aruco_err_m']} m (limit {OP_DIST_M})")
+            if alt in OP_LED_ALTS and s["leds"] != OP_LEDS:
+                fails.append(f"{alt} m yaw {yaw}: LEDs decode to {s['leds']:#010b}, rendered {OP_LEDS:#010b}")
+        if max(abs(b) for b in summary["corner_bias_px"]) > OP_BIAS_PX:
+            fails.append(f"corner bias {summary['corner_bias_px']} px (limit {OP_BIAS_PX})")
+        if fails:
+            log(result)
+            raise SmokeFailure(f"operating point, {name}: " + "; ".join(fails))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "operating_point.json"), "w") as f:
+        json.dump(details, f)
+    result.update({"seconds": time.perf_counter() - t_phase, "dist_bound_m": OP_DIST_M,
+                   "jax_dist_err_m": OP_JAX_DIST_ERR, "paper_m": OP_PAPER_M, "card": card})
+    log(result)
+    return result
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2413,6 +2596,9 @@ def main(argv=None) -> int:
     cowc_phase(ckpt, uav_tracker_config(), card, dev)
     selective_phase(frames_np, ckpt, uav_tracker_config(), card, dev)
     parallel_phase(frames_np, frames, pipe, ckpt, uav_tracker_config(), card, dev)
+
+    # -- 21. the 4K operating point against ground truth --------------------------
+    operating_point_phase(mtx, dist, card, dev)
 
     print(card)
     log({"kernels": kernels})

@@ -128,17 +128,6 @@ def _fpn_feats(rng, hw=(32, 48), c=8):
     return {f"p{i + 2}": rng.normal(size=(2, -(-h // 2**i), -(-w // 2**i), c)).astype(np.float32) for i in range(4)}
 
 
-def fpn_roi_align_dense(feats, boxes, resolution, sampling_ratio):
-    """The reference's oracle formulation in the port's ops: every box pooled
-    on every level (bf16 maps, ROIAlignV2), then the assigned level selected."""
-    lvl = trh.assign_boxes_to_levels(boxes)
-    pooled = torch.stack([
-        troi.roi_align_hwc(feats[name].to(torch.bfloat16).to(torch.float32), boxes, resolution, 1.0 / (4 * 2**i),
-                           sampling_ratio, aligned=True)
-        for i, name in enumerate(trh.POOL_LEVELS)])
-    return pooled[lvl, torch.arange(boxes.shape[0])]
-
-
 @pytest.mark.parametrize("ratio", [1, 2])
 def test_fpn_roi_align_matches_jax_and_dense_oracle(ratio):
     """Batched flat multi-level ROIAlign against the JAX one per image, and
@@ -151,13 +140,13 @@ def test_fpn_roi_align_matches_jax_and_dense_oracle(ratio):
     boxes = np.concatenate([xy, xy + sizes * rng.uniform(0.5, 1.5, (2, 24, 2))], axis=-1).astype(np.float32)
     tfeats = {k: torch.from_numpy(v) for k, v in feats.items()}
     got = trh.fpn_roi_align(tfeats, torch.from_numpy(boxes), 7, ratio)
+    dense = trh.fpn_roi_align_dense(tfeats, torch.from_numpy(boxes), 7, ratio)
     scale = max(np.abs(v).max() for v in feats.values())
     assert len(set(trh.assign_boxes_to_levels(torch.from_numpy(boxes)).reshape(-1).tolist())) == 4
     for b in range(2):
         want = jrh.fpn_roi_align({k: jnp.asarray(v[b]) for k, v in feats.items()}, jnp.asarray(boxes[b]), 7, ratio)
         np.testing.assert_allclose(got[b].numpy(), np.asarray(want), rtol=0, atol=1e-5 * scale)
-        dense = fpn_roi_align_dense({k: v[b] for k, v in tfeats.items()}, torch.from_numpy(boxes[b]), 7, ratio)
-        np.testing.assert_allclose(got[b].numpy(), dense.numpy(), rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(got[b].numpy(), dense[b].numpy(), rtol=0, atol=1e-5 * scale)
     want_lvl = np.asarray(jrh.assign_boxes_to_levels(jnp.asarray(boxes.reshape(-1, 4)))).reshape(2, 24)
     np.testing.assert_array_equal(trh.assign_boxes_to_levels(torch.from_numpy(boxes)).numpy(), want_lvl)
 

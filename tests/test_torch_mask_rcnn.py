@@ -19,7 +19,7 @@ import torch
 from torch_parity import e2e_frames, jax_mask_rcnn, port_config, tiny_dcnn_config
 
 from apse_uav_tpu.dcnn import weights as jW
-from apse_uav_tpu.dcnn.models import roi_heads as jrh
+from apse_uav_tpu.dcnn.models import mask_rcnn as jmask_rcnn, roi_heads as jrh
 from apse_uav_tpu.dcnn.models.association import AssociationHead as JAssociationHead
 from apse_uav_tpu.dcnn.models.mask_rcnn import RPN_LEVELS
 from apse_uav_tpu.dcnn.models.rpn import select_proposals as j_select_proposals
@@ -28,7 +28,7 @@ from apse_uav_torch.dcnn import weights as tW
 from apse_uav_torch.dcnn.config import mask_rcnn_r101_fpn, mask_rcnn_r101_c4
 from apse_uav_torch.dcnn.models import roi_heads as trh
 from apse_uav_torch.dcnn.models.association import AssociationHead
-from apse_uav_torch.dcnn.models.mask_rcnn import MaskRCNN
+from apse_uav_torch.dcnn.models.mask_rcnn import MaskRCNN, build_mask_rcnn, run_inference
 from apse_uav_torch.dcnn.models.rpn import select_proposals as t_select_proposals
 from apse_uav_torch.utils.synthetic import detectron2_checkpoint
 
@@ -59,7 +59,7 @@ def _jax_stages(model, params, images):
         return {**out, "feats": feats, "logits": logits, "deltas": deltas}
 
     out = jax.jit(lambda p, x: model.apply({"params": p}, x, method=run))(params, images)
-    dets, _ = jax.jit(lambda p, x: model.apply({"params": p}, x, mode="inference"))(params, images)
+    dets, _ = jmask_rcnn.run_inference(model, params, images)
     return jax.tree_util.tree_map(np.asarray, out), jax.tree_util.tree_map(np.asarray, dets)
 
 
@@ -165,6 +165,29 @@ def test_inference_matches_jax(models):
     np.testing.assert_allclose(det["scores"].numpy(), want["scores"], rtol=0, atol=1e-4)
     np.testing.assert_allclose(det["masks"].numpy(), want["masks"], rtol=0, atol=1e-3)
     assert det["masks"].shape == (2, 4, 28, 28)
+
+
+def test_build_mask_rcnn_and_run_inference_match_jax(models):
+    """``build_mask_rcnn`` + ``run_inference`` against JAX's ``run_inference``
+    (the fixture's detections) at test_inference_matches_jax's bounds, and
+    p2 within 1e-4 of its max-abs; no autograd graph; the default device
+    is cuda."""
+    model = build_mask_rcnn(port_config(models["jcfg"]), device="cpu")
+    assert not model.training
+    missing, unused = tW.load_detectron2(model, models["ckpt"])
+    assert not missing and not unused
+    det, feats = run_inference(model, _t(models["images"]))
+    assert not det["boxes"].requires_grad and not feats["p2"].requires_grad
+    want = models["jdets"]
+    np.testing.assert_array_equal(det["valid"].numpy(), want["valid"])
+    np.testing.assert_array_equal(det["classes"].numpy(), want["classes"])
+    np.testing.assert_allclose(det["boxes"].numpy(), want["boxes"], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(det["scores"].numpy(), want["scores"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(det["masks"].numpy(), want["masks"], rtol=0, atol=1e-3)
+    assert _rel(feats["p2"].numpy(), models["j"]["feats"]["p2"]) <= 1e-4
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            build_mask_rcnn(port_config(models["jcfg"]))
 
 
 def test_weight_carriers_both_ways(models):

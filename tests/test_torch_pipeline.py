@@ -19,6 +19,7 @@ from apse_uav_tpu.aruco.pipeline import init_carry as jinit
 from apse_uav_tpu.core import camera as jcam
 from apse_uav_tpu.preproc import twopass as jtwopass
 from apse_uav_tpu.utils.synthetic import MarkerSpec, render_scene
+from apse_uav_torch.utils.synthetic import marker_world_corners, project_world_to_undistorted
 from apse_uav_torch import convert
 from apse_uav_torch.aruco import cuda_proposals, detector as tdet, patch_select
 from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
@@ -39,19 +40,21 @@ def cam():
     return ms, dist
 
 
+def sequence_specs(t: int) -> list:
+    """Frame t of the 5-frame sequence of test_aruco_pipeline (moving markers, LEDs)."""
+    return [
+        MarkerSpec(4, (0.0 + 0.05 * t, 0.5), 5, leds=LEDS),
+        MarkerSpec(1, (-4.0 + 0.1 * t, -2.0), 30),
+        MarkerSpec(2, (4.0, 1.5 - 0.1 * t), -20),
+        MarkerSpec(3, (1.5, -2.5), 90),
+    ]
+
+
 @pytest.fixture(scope="module")
 def sequence(cam):
-    """The 5-frame sequence of test_aruco_pipeline (moving markers, LEDs)."""
+    """The 5-frame sequence, rendered by the JAX package's ``render_scene``."""
     ms, dist = cam
-    frames = []
-    for t in range(5):
-        specs = [
-            MarkerSpec(4, (0.0 + 0.05 * t, 0.5), 5, leds=LEDS),
-            MarkerSpec(1, (-4.0 + 0.1 * t, -2.0), 30),
-            MarkerSpec(2, (4.0, 1.5 - 0.1 * t), -20),
-            MarkerSpec(3, (1.5, -2.5), 90),
-        ]
-        frames.append(render_scene(ms, dist, (W, H), specs, altitude=ALT))
+    frames = [render_scene(ms, dist, (W, H), sequence_specs(t), altitude=ALT) for t in range(5)]
     return np.ascontiguousarray(np.stack(frames).transpose(0, 3, 1, 2))
 
 
@@ -102,6 +105,43 @@ def test_slice_matches_jax(jax_run, port_run):
         assert err[:, [0, 2]].max() <= 0.01 and err[:, 1].max() <= 0.05, (key, err)
     np.testing.assert_allclose(got["altitude"], want["altitude"], atol=1e-3)
     np.testing.assert_allclose(got["marker_length"], want["marker_length"], atol=1e-6)
+
+
+def test_both_packages_against_ground_truth(cam, jax_run, port_run):
+    """Both packages' two-pass runs against the renderer's truth, frame by
+    frame: the corners of ids 1-4 against their projected world corners
+    (``project_world_to_undistorted(marker_world_corners(spec))``), and
+    dist_aruco of vehicles 1-3 against the world distance of their marker
+    centres from the host's.
+
+    Measured (px: mean of a frame's 16 corners, worst corner; m: worst
+    |error|): the port 0.386 px, 0.720 px and 0.149 m; the JAX package the
+    same on markers 1, 3 and 4, but on marker 2 (the known 2.8 px divergence
+    between the packages) its corners are 3.37 px off the truth in frame 2,
+    where the port's are 0.49 px off (that frame's mean: JAX 0.571 px, the
+    port 0.328 px): the port is the closer one.  Bounds: the operating
+    point's (chip_smoke.py phase 21), 0.5 px mean and 1.5 px worst, for the
+    port on every marker and for JAX on markers 1, 3 and 4; JAX's marker 2 is
+    held to 3.5 px; distances within 0.2 m for both (the reference's marker
+    length correction shortens them by 0.08-0.16 m here)."""
+    ms, _ = cam
+    _, _, want = jax_run
+    _, got, _ = port_run
+    worst_m2 = {}
+    for name, out in (("port", got), ("jax", want)):
+        for t in range(len(out["corners"])):
+            specs = {s.marker_id: s for s in sequence_specs(t)}
+            truth = np.stack([project_world_to_undistorted(marker_world_corners(specs[m]), ms, ALT)
+                              for m in range(1, 5)])
+            err = np.linalg.norm(out["corners"][t] - truth, axis=-1)  # (ids 1-4, 4 corners)
+            others = err[[0, 2, 3]] if name == "jax" else err
+            assert others.mean() <= 0.5 and others.max() <= 1.5, (name, t, err)
+            assert err[1].max() <= 3.5, (name, t, err)
+            worst_m2[name] = max(worst_m2.get(name, 0.0), float(err[1].max()))
+            host = np.asarray(specs[4].center_xy)
+            true_d = np.array([np.linalg.norm(np.asarray(specs[v].center_xy) - host) for v in (1, 2, 3)])
+            assert np.abs(out["dist_aruco"][t] - true_d).max() <= 0.2, (name, t, out["dist_aruco"][t], true_d)
+    assert worst_m2["port"] < worst_m2["jax"], worst_m2
 
 
 def test_single_pass_matches_jax(cam, sequence):
