@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
-SOURCES = ("labeling", "pool", "proposals", "remap")
+SOURCES = ("auction", "labeling", "pool", "proposals", "remap")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

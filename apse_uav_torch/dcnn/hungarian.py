@@ -2,7 +2,9 @@
 Jonker-Volgenant solve and the eps-scaled auction.
 
 Counterpart of the JAX reference's ``dcnn/hungarian.py``:
-``gated_auction_match`` (the tracker's default), ``linear_sum_assignment``
+``gated_auction_match`` (the tracker's default; on the card the tracker runs
+it as one kernel launch, ``dcnn/cuda_auction.py``, and this is its plain
+version), ``linear_sum_assignment``
 (exact, scipy's interface; the tracker's ``exact=True``),
 ``auction_assignment`` and ``pad_cost``.  The reference runs each as
 ``lax.while_loop``s on the device.  Here each loop step is dense tensor work
@@ -45,6 +47,14 @@ def gated_auction_match(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: 
     surplus over its second-best-or-null on its best column; a column goes to
     its highest bid (ties: lower row); eps = spread / 1024 breaks exact ties.
     Rows still bidding when the budget runs out exit to null."""
+    return gated_auction_sweeps(cost, row_valid, col_valid, threshold, max_sweeps)[0]
+
+
+def gated_auction_sweeps(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, threshold: float,
+                         max_sweeps: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gated_auction_match` and the number of sweeps it ran, (1,) int32:
+    the reference loop's iterations, at most ``max_sweeps``.  The plain version
+    of the ``csrc/auction.cu`` kernel (``dcnn/cuda_auction.py``)."""
     cost = cost.to(torch.float32)
     n_rows, n_cols = cost.shape
     dev = cost.device
@@ -57,7 +67,7 @@ def gated_auction_match(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: 
     cols = torch.arange(n_cols, device=dev)
 
     def sweep(state):
-        col_of_row, owner, prices = state
+        col_of_row, owner, prices, sweeps = state
         bidding = col_of_row == _BIDDING
         values = benefit - prices[None, :]
         v1, j_star = values.max(dim=1)
@@ -79,13 +89,14 @@ def gated_auction_match(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: 
         col_of_row = torch.where(displaced, torch.full_like(col_of_row, _BIDDING), col_of_row)
         owner = torch.where(got, best_row, owner)
         col_of_row = set_at(col_of_row, torch.where(got, best_row, n_rows), cols)
-        return col_of_row, owner, prices
+        # A sweep past the end (no row bidding) changes nothing and is not counted.
+        return col_of_row, owner, prices, sweeps + bidding.any().to(torch.int32)
 
     col0 = torch.where(row_valid, torch.full((n_rows,), _BIDDING, device=dev), torch.full((n_rows,), _NULL, device=dev))
     state = (col0, torch.full((n_cols,), -1, dtype=torch.int64, device=dev),
-             torch.zeros(n_cols, dtype=torch.float32, device=dev))
-    col_of_row, _, _ = run_until(sweep, state, lambda s: ~(s[0] == _BIDDING).any(), max_sweeps, CHECK_EVERY)
-    return torch.where(col_of_row == _BIDDING, torch.full_like(col_of_row, _NULL), col_of_row)
+             torch.zeros(n_cols, dtype=torch.float32, device=dev), torch.zeros(1, dtype=torch.int32, device=dev))
+    col_of_row, _, _, sweeps = run_until(sweep, state, lambda s: ~(s[0] == _BIDDING).any(), max_sweeps, CHECK_EVERY)
+    return torch.where(col_of_row == _BIDDING, torch.full_like(col_of_row, _NULL), col_of_row), sweeps
 
 
 def pad_cost(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, pad_value: float = _BIG):

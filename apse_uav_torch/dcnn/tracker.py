@@ -5,7 +5,8 @@ metrics (``TrackerConfig.association_metric``):
 
 * ``embeddings`` (default): mask-cropped p2 features -> ROIAlign (10x10,
   sampling ratio 4, aligned=False) -> AssociationHead -> squared-L2 distance
-  matrix -> gated auction (threshold 0.6), or with ``exact=True`` the
+  matrix -> gated auction (threshold 0.6; one kernel launch a frame on the
+  card, ``cuda_auction``), or with ``exact=True`` the
   Jonker-Volgenant solve of the padded square problem, then the gate;
 * ``bbox_center_dist``: the nearest active track by squared box-centre
   distance, below the threshold;
@@ -26,9 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from apse_uav_torch.dcnn import structures
+from apse_uav_torch.dcnn import cuda_auction, structures
 from apse_uav_torch.dcnn.config import TrackerConfig
-from apse_uav_torch.dcnn.hungarian import _BIG, gated_auction_match, linear_sum_assignment, pad_cost, set_at
+from apse_uav_torch.dcnn.hungarian import _BIG, linear_sum_assignment, pad_cost, set_at
 from apse_uav_torch.dcnn.models.association import AssociationHead
 from apse_uav_torch.dcnn.ops.nms import descending_order
 from apse_uav_torch.dcnn.ops.roi_align import sample_grid
@@ -195,7 +196,8 @@ def associate_embeddings(state: dict, det: dict, embeddings: torch.Tensor, thres
                          exact: bool = False) -> dict:
     """Association on squared-L2 embedding distances, then new tracks for the
     unmatched detections (one frame: det fields (D, ...)).  The default
-    solver is the gated auction; ``exact=True`` pads the problem to square
+    solver is the gated auction (``cuda_auction``: the kernel on the card,
+    the plain version on the CPU); ``exact=True`` pads the problem to square
     with the solver's pad (``_BIG``, not ``_FAR_SQ``: float32 keeps sub-unit
     resolution there), solves it with Jonker-Volgenant and gates the pairs."""
     cap = state["active"].shape[0]
@@ -209,7 +211,7 @@ def associate_embeddings(state: dict, det: dict, embeddings: torch.Tensor, thres
         cost[:cap, :d_cap] = pad_cost(dist, state["active"], det["valid"])
         det_for_track = linear_sum_assignment(cost)[1][:cap]
     else:
-        det_for_track = gated_auction_match(dist, state["active"], det["valid"], threshold)
+        det_for_track = cuda_auction.gated_auction_match(dist, state["active"], det["valid"], threshold)
         det_for_track = torch.where(det_for_track < 0, d_cap, det_for_track)
     clipped = det_for_track.clamp(0, d_cap - 1)
     ok = state["active"] & (det_for_track < d_cap) & det["valid"][clipped]

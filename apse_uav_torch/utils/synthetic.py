@@ -373,6 +373,32 @@ def labeling_masks(win: int) -> dict[str, np.ndarray]:
 # proposals scores above 0.5, so the detections are few and their scores far
 # apart.  Mask logit bias: masks are on over nearly the whole box, so no mask
 # cell sits at the 0.5 threshold.
+AUCTION_KINDS = ("random", "ties", "invalid", "above", "contested")
+
+
+def auction_problem(kind: str, rng: np.random.Generator, rows: int, cols: int):
+    """A seeded (cost (rows, cols) float32, row_valid, col_valid) for the gated
+    auction at the tracker's threshold 0.6: ``random`` costs uniform on [0,
+    1.2); ``ties`` those rounded to thirds (exact ties between columns and
+    between rows); ``invalid`` ~30 % of rows and columns invalid; ``above``
+    every pair above 0.6; ``contested`` every row prefers the same few
+    columns (many sweeps)."""
+    cost = rng.uniform(0, 1.2, (rows, cols)).astype(np.float32)
+    rv, cv = np.ones(rows, bool), np.ones(cols, bool)
+    if kind == "ties":
+        cost = (np.round(cost * 3) / 3).astype(np.float32)
+    elif kind == "invalid":
+        rv[rng.uniform(size=rows) < 0.3] = False
+        cv[rng.uniform(size=cols) < 0.3] = False
+    elif kind == "above":
+        cost = rng.uniform(0.61, 2.0, (rows, cols)).astype(np.float32)
+    elif kind == "contested":
+        cost = (rng.uniform(0, 0.05, (rows, cols)) + np.arange(cols)[None, :] * 0.1).astype(np.float32)
+    elif kind != "random":
+        raise ValueError(kind)
+    return cost, rv, cv
+
+
 CLS_BG_BIAS = 4.0
 MASK_BIAS = 5.0
 

@@ -41,7 +41,15 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    with CUDA events (the wrapper call) and torch.profiler (its
                    kernels' device time alone) beside the plain version and one
                    PyTorch library call where one computes (part of) the same
-                   function.
+                   function.  Then the tracker's gated auction kernel at its
+                   32x32: 200 seeded problems (every kind of
+                   ``utils.synthetic.auction_problem``) and 7 crafted ones
+                   (ties everywhere, budget exhaustion, one column, every cost
+                   at the threshold, no valid row or column), each at the
+                   budgets 128, 1, 2, 3 and 5, col_of_row and the sweep count
+                   identical to the plain version's CPU run; one call under
+                   sync-as-error; timed on a seeded problem with CUDA events
+                   and the profiler beside the plain version on the card.
 6. gpu-cpu      -- the first 2 frames through the two-pass port on the CPU
                    (plain versions) against the card's run.
 7. tracker      -- the DCNN tracking path: the same 8 frames (HWC, numpy) through
@@ -59,7 +67,12 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    never reused, 8 CSV rows.  Then ms per batch of each stage,
                    frames/s, one batch profiled (device busy, idle share,
                    launches), its host syncs (``set_sync_debug_mode("warn")``)
-                   and peak memory; and the first frame on the CPU (plain
+                   and peak memory; the NMS fixed points' ms, calls and
+                   convergence tests a batch (each call alone, between two
+                   synchronizes); the association stage's ms, syncs, kernel
+                   launches and auction sweeps per frame, and the CLI run's
+                   sweeps per frame and frames at the 128-sweep budget (the
+                   auction kernel must launch); and the first frame on the CPU (plain
                    versions) against the card: p2-p6 within 1e-4 of each map's
                    max-abs, the same valid ids and classes, boxes within 0.5 px,
                    the same CSV row.
@@ -79,11 +92,18 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    Prints the bf16 run scored against the float32 run (with the
                    number of objects scored) and both
                    runs' stage ms, frames/s, device busy, idle share, launches
-                   and peak memory.
+                   and peak memory, and phase 7's association and sweep figures
+                   (the auction kernel must launch in both runs).
 9. association  -- phase 8's float32 detections and embeddings through
-                   ``bbox_center_dist``, ``mask_iou`` and ``embeddings(exact=True)``
-                   on the card and on the CPU: identical ids frame by frame;
-                   ms per batch.  ``linear_sum_assignment`` and
+                   ``embeddings`` (the auction kernel), ``bbox_center_dist``,
+                   ``mask_iou`` and ``embeddings(exact=True)`` on the card and
+                   on the CPU: identical ids frame by frame; ms, syncs,
+                   launches and sweeps per batch.  The auction kernel on the
+                   real costs of every frame at every budget against the plain
+                   version's CPU run (identical), one call under sync-as-error,
+                   timed per solve on those costs (the ``kernels`` line's
+                   auction row; its launches are phase 7's).
+                   ``linear_sum_assignment`` and
                    ``auction_assignment`` on seeded 32x32 costs, both ways: JV
                    at scipy's optimum, the auction within n x its last eps; ms
                    per solve.
@@ -279,6 +299,8 @@ REPLACES = {
     "pool": "preproc/pallas_pool.py:56",
     "remap_full_rgb": "preproc/pallas_remap.py:1259",
     "colour_table": "preproc/pallas_remap.py:1259",
+    # No Pallas kernel: the lax.while_loop of gated_auction_match (its loop at :298).
+    "auction": "dcnn/hungarian.py:202",
 }
 # Device kernels of each wrapper, as the profiler names them (substrings).
 KERNEL_NAMES = {
@@ -289,7 +311,10 @@ KERNEL_NAMES = {
     "pool": ("pool4_kernel",),
     "remap_full_rgb": ("remap_kernel",),
     "colour_table": ("table_kernel",),
+    "auction": ("auction_kernel",),
 }
+# The gated auction's sweep budget (gated_auction_match's max_sweeps default).
+AUCTION_BUDGET = 128
 
 
 def log(obj) -> None:
@@ -473,11 +498,12 @@ def gpu_vs_cpu(pipe, cpipe, cfg, two, dev) -> dict:
     return res
 
 
-def tracker_stages(tracker, pre, frames_np, dev) -> dict:
+def tracker_stages(tracker, pre, frames_np, dev) -> tuple[dict, dict]:
     """Host-clock ms per batch of each stage of the tracker path on the card
     (each stage alone, on the previous stage's output; the association from
     the state the batch itself left, as in a video whose vehicles stay in
-    view)."""
+    view), and the association stage's launches, syncs and auction sweeps
+    (``association_stats``)."""
     import torch
 
     from apse_uav_torch.dcnn.engines import full_fp32
@@ -513,8 +539,39 @@ def tracker_stages(tracker, pre, frames_np, dev) -> dict:
              "roi_heads_masks": wall_ms(quiet(lambda: model.detect(feats, boxes, valid, hw))),
              "embeddings": wall_ms(lambda: tracker.embed(dets, feats)),
              "association": wall_ms(associate)}
+    assoc = association_stats(associate, times["association"])
     tracker.state = state0
-    return {k: round(v, 3) for k, v in times.items()}
+    return {k: round(v, 3) for k, v in times.items()}, assoc
+
+
+def auction_sweeps(log: list) -> dict:
+    """Sweeps per frame of the auction calls in ``log`` (``cuda_auction.sweep_log``)
+    and how many frames reached the budget."""
+    import torch
+
+    sweeps = torch.cat(log).cpu().tolist() if log else []
+    return {"auction_sweeps_per_frame": sweeps, "frames_at_sweep_budget": sum(v >= AUCTION_BUDGET for v in sweeps)}
+
+
+def association_stats(associate, ms: float) -> dict:
+    """One call of ``associate`` (a batch's association) on the card: its host
+    syncs, its device kernels (profiled: launches, busy ms) and its auction
+    launches and sweeps per frame."""
+    from apse_uav_torch import _build
+    from apse_uav_torch.dcnn import cuda_auction
+
+    syncs = count_syncs(associate)
+    prof = profile_call(associate, ms)
+    before = _build.launches.get(cuda_auction.NAME, 0)
+    cuda_auction.sweep_log = []
+    try:
+        associate()
+        sweeps = auction_sweeps(cuda_auction.sweep_log)
+    finally:
+        cuda_auction.sweep_log = None
+    return {"ms": round(ms, 3), "syncs": syncs, "kernel_launches": prof["kernel_launches"],
+            "device_busy_ms": prof["device_busy_ms"], "auction_launches": _build.launches.get(cuda_auction.NAME, 0)
+            - before, **sweeps}
 
 
 def count_syncs(fn) -> int:
@@ -533,6 +590,130 @@ def count_syncs(fn) -> int:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum(SYNC_WARNING in str(w.message) for w in caught)
+
+
+def nms_timing(fn) -> dict:
+    """The NMS fixed points in one call of ``fn`` (the RPN's per-level NMS and
+    ``box_inference``'s class NMS, each an ``ops.nms.nms_mask``): every call
+    timed alone on the host clock between two synchronizes, its shape and its
+    convergence tests (host syncs)."""
+    import torch
+
+    from apse_uav_torch.dcnn.models import rpn
+    from apse_uav_torch.dcnn.ops import loops, nms
+
+    inner, calls = nms.nms_mask, []
+
+    def timed(boxes, *args, **kwargs):
+        torch.cuda.synchronize()
+        c0, t0 = loops.checks["count"], time.perf_counter()
+        out = inner(boxes, *args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append(((time.perf_counter() - t0) * 1e3, loops.checks["count"] - c0, list(boxes.shape)))
+        return out
+
+    nms.nms_mask = rpn.nms_mask = timed
+    try:
+        fn()
+    finally:
+        nms.nms_mask = rpn.nms_mask = inner
+    return {"calls": len(calls), "ms": round(sum(c[0] for c in calls), 3),
+            "convergence_checks": sum(c[1] for c in calls),
+            "per_call": [[round(ms, 3), checks, shape] for ms, checks, shape in calls]}
+
+
+def auction_problems(n_per_kind: int = 40, n: int = 32) -> list[tuple[str, tuple]]:
+    """Seeded and crafted (cost, row_valid, col_valid) problems at the tracker's
+    n x n: ``n_per_kind`` of each kind of ``utils.synthetic.auction_problem``,
+    then equal costs (ties everywhere), two columns near the threshold and two
+    contested well below it (both run out of the sweep budget), one column,
+    every cost at the threshold (every row exits), no valid row, no valid
+    column."""
+    from apse_uav_torch.utils.synthetic import AUCTION_KINDS, auction_problem
+
+    rng = np.random.default_rng(0)
+    out = [(kind, auction_problem(kind, rng, n, n)) for kind in AUCTION_KINDS for _ in range(n_per_kind)]
+    yes, no = np.ones(n, bool), np.zeros(n, bool)
+    two = no.copy()
+    two[:2] = True
+    full = lambda v: np.full((n, n), v, np.float32)  # noqa: E731
+    out += [("equal", (full(0.3), yes, yes)), ("two_near_threshold", (full(0.59), yes, two)),
+            ("two_contested", ((0.3 + 1e-6 * rng.uniform(size=(n, n))).astype(np.float32), yes, two)),
+            ("one_column", (full(0.59), yes, np.eye(n, dtype=bool)[0])), ("at_threshold", (full(0.6), yes, yes)),
+            ("no_rows", (full(0.3), no, yes)), ("no_columns", (full(0.3), yes, no))]
+    return out
+
+
+def auction_bound(rows: int, cols: int, sweeps: int) -> tuple[float, str]:
+    """The gated auction's bound: the costs, the two masks and the outputs
+    once; ~6 operations a cost entry a sweep (negate, subtract the price, two
+    compares of the row scan, one of the column scan, the bid) over the
+    sweeps this problem ran."""
+    return bound(rows * cols * 4 + rows + cols + rows * 8 + 4, 6 * rows * cols * sweeps)
+
+
+def auction_check(problems, dev, threshold: float = 0.6, budgets=(AUCTION_BUDGET, 1, 2, 3, 5)) -> dict:
+    """The auction kernel against the plain version's CPU run on ``problems``
+    ((kind, (cost, row_valid, col_valid)) with numpy or CPU tensors) at each
+    sweep budget: col_of_row and the sweep count identical, or SmokeFailure.
+    (The plain version on the card is no reference: its max(dim) may break
+    an exact tie another way.)  Returns the counts and the full budget's
+    sweeps per problem."""
+    import torch
+
+    from apse_uav_torch.dcnn import cuda_auction, hungarian
+
+    got, want = [], []
+    for kind, arrays in problems:
+        t = [torch.as_tensor(a) for a in arrays]
+        for budget in budgets:
+            want.append((kind, budget, hungarian.gated_auction_sweeps(*t, threshold, budget)))
+            got.append(cuda_auction.solve(*(a.to(dev) for a in t), threshold, budget))
+    torch.cuda.synchronize()
+    sweeps, exhausted = [], 0
+    for (kind, budget, (wcol, wsw)), (gcol, gsw) in zip(want, got):
+        if not torch.equal(gcol.cpu(), wcol) or int(gsw.cpu()[0]) != int(wsw[0]):
+            raise SmokeFailure(f"auction kernel vs plain, {kind}, budget {budget}: {gcol.cpu().tolist()} "
+                               f"({int(gsw.cpu()[0])} sweeps) vs {wcol.tolist()} ({int(wsw[0])} sweeps)")
+        if budget == AUCTION_BUDGET:
+            sweeps.append(int(wsw[0]))
+        exhausted += int(wsw[0]) == budget
+    return {"problems": len(problems), "budgets": list(budgets), "solves": len(got), "mismatches": 0,
+            "solves_at_budget": exhausted, "sweeps_max": max(sweeps), "sweeps_mean": round(float(np.mean(sweeps)), 3)}
+
+
+def auction_timing(problems, threshold: float) -> dict:
+    """The auction on the card, per solve over ``problems`` ((cost, row_valid,
+    col_valid) on the card, solved one after another): the wrapper's ms (CUDA
+    events), its kernel's device ms (torch.profiler), the plain version's ms
+    on the card, the mean sweeps and bound (``auction_bound`` per problem);
+    one solve under sync-as-error."""
+    import torch
+
+    from apse_uav_torch.dcnn import cuda_auction, hungarian
+
+    n = len(problems)
+
+    def kern():
+        return [cuda_auction.solve(*p, threshold) for p in problems]
+
+    sweeps = [int(s.cpu()[0]) for _, s in kern()]
+    bounds = [auction_bound(*p[0].shape, k) for p, k in zip(problems, sweeps)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cuda_auction.solve(*problems[0], threshold)
+    except RuntimeError as e:
+        raise SmokeFailure(f"the auction wrapper synchronises the device: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    kms = kernel_ms(kern, KERNEL_NAMES["auction"])
+    plain_ms = cuda_ms(lambda: [hungarian.gated_auction_sweeps(*p, threshold) for p in problems], 3, 1)
+    b_ms = sum(b for b, _ in bounds) / n
+    return {"problems": n, "shape": list(problems[0][0].shape), "sweeps_mean": sum(sweeps) / n,
+            "ms": round(cuda_ms(kern, iters=20, warmup=3) / n, 4),
+            "kernel_ms": None if kms is None else round(kms / n, 4), "plain_ms": round(plain_ms / n, 4),
+            "bound_ms": round(b_ms, 7), "bound_by": max(bounds)[1]}
 
 
 def calibrate_background(ckpt: dict, cfg, pre, frames_np, dev, per_frame: int = 10) -> dict:
@@ -638,6 +819,7 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
 
     from apse_uav_torch import _build
     from apse_uav_torch.cli.track_uav import build_parser, track
+    from apse_uav_torch.dcnn import cuda_auction
     from apse_uav_torch.dcnn.config import TrackerConfig, mask_rcnn_r50_fpn, uav_tracker_config
     from apse_uav_torch.dcnn.engines import RcnnTracker
     from apse_uav_torch.dcnn.models.association import init_weights
@@ -671,6 +853,7 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
                                       "--preprocess", cam_json, "--log_file", csv_path, "--batch", str(TRACK_BATCH),
                                       "--confidence", str(TRACK_CONFIDENCE), "--device", dev.type])
     try:
+        cuda_auction.sweep_log = []
         _build.reset_counts()
         loops.reset_checks()
         t0 = time.perf_counter()
@@ -678,10 +861,13 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         counts, cli_checks = dict(_build.launches), loops.checks["count"]
+        cli_sweeps = auction_sweeps(cuda_auction.sweep_log)
     finally:
+        cuda_auction.sweep_log = None
         os.remove(weights_path)
-    if counts.get(cuda_remap.K3_RGB, 0) == 0:
-        raise SmokeFailure(f"{cuda_remap.K3_RGB} not launched on the tracker path (counts {counts})")
+    for key in (cuda_remap.K3_RGB, cuda_auction.NAME):
+        if counts.get(key, 0) == 0:
+            raise SmokeFailure(f"{key} not launched on the tracker path (counts {counts})")
     with open(csv_path) as f:
         rows = f.read().splitlines()[2:]
     if len(rows) != n or res["rows"] != n:
@@ -701,7 +887,7 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
     # The stages on the card, the detections of every frame, a batch end to end.
     tracker = RcnnTracker(cfg, tcfg, ckpt, assoc, (h, w), device=dev)
     batch_np = frames_np[:TRACK_BATCH]
-    stages = tracker_stages(tracker, pre, batch_np, dev)
+    stages, assoc_stats = tracker_stages(tracker, pre, batch_np, dev)
     n_dets = []
     for b in range(0, n, TRACK_BATCH):
         dets, _ = tracker.predictor(pre(torch.from_numpy(frames_np[b:b + TRACK_BATCH]).to(dev), with_gray=False)[0])
@@ -727,13 +913,16 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
     syncs_dispatch = count_syncs(lambda: tracker.process_frames_async(pre(x, with_gray=False)[0]))
     checks_dispatch = loops.checks["count"]
     profile = profile_call(batch, batch_ms)
+    nms_batch = nms_timing(batch)
     log({"phase": "tracker", "frames": n, "size": [w, h], "batch": TRACK_BATCH, "depth": depth,
          "confidence": TRACK_CONFIDENCE, "calibration": calibration, "checkpoint_s": round(ckpt_s, 3),
          "cli_s": round(cli_s, 3), "cli_frames_per_s": round(n / cli_s, 3), "launches": counts,
-         "cli_convergence_checks": cli_checks, "batch_ms": round(batch_ms, 3),
-         "frames_per_s": round(TRACK_BATCH * 1e3 / batch_ms, 3), "stage_ms": stages, "syncs_per_batch": syncs,
+         "cli_convergence_checks": cli_checks, "cli_auction": cli_sweeps, "batch_ms": round(batch_ms, 3),
+         "frames_per_s": round(TRACK_BATCH * 1e3 / batch_ms, 3), "stage_ms": stages, "association": assoc_stats,
+         "syncs_per_batch": syncs,
          "syncs_dispatch": syncs_dispatch, "convergence_checks_per_batch": checks,
-         "convergence_checks_dispatch": checks_dispatch, "peak_mem_gib": round(peak / 2**30, 3),
+         "convergence_checks_dispatch": checks_dispatch, "nms_fixed_points": nms_batch,
+         "peak_mem_gib": round(peak / 2**30, 3),
          "detections_above_conf": n_dets, "tracks": [int(snaps[i]["valid"].sum()) for i in range(n)],
          "max_id": max(seen), "csv_rows": len(rows), "card": card})
     log({"phase": "tracker_profile", **profile})
@@ -768,7 +957,8 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
     if crow != rows[0]:
         raise SmokeFailure(f"tracker GPU vs CPU: CSV rows differ:\n{rows[0]}\n{crow}")
     return {"snaps": snaps, "ckpt": ckpt, "cfg": cfg, "tcfg": tcfg, "assoc": assoc, "pre": pre,
-            "tracker": tracker, "stages": stages, "batch_ms": batch_ms, "profile": profile, "peak_gib": peak / 2**30}
+            "tracker": tracker, "stages": stages, "batch_ms": batch_ms, "profile": profile, "peak_gib": peak / 2**30,
+            "counts": counts}
 
 
 def bf16_convs(kernel_names) -> list[str]:
@@ -821,6 +1011,7 @@ def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
 
     from apse_uav_torch import _build
     from apse_uav_torch.cli import tracker_test
+    from apse_uav_torch.dcnn import cuda_auction
     from apse_uav_torch.dcnn.engines import full_fp32
     from apse_uav_torch.dcnn.models.mask_rcnn import RPN_LEVELS
     from apse_uav_torch.preproc import cuda_remap
@@ -839,18 +1030,22 @@ def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
         for name, extra in (("float32", []), ("bf16", ["--bf16"])):
             args = tracker_test.build_parser().parse_args(flags + extra)
             built = tracker_test.build_tracker(args, (h, w))
+            cuda_auction.sweep_log = []
             _build.reset_counts()
             recents, stats = tracker_test.track_sequence(args, list(frames_np), built)
             torch.cuda.synchronize()
             counts = dict(_build.launches)
-            if counts.get(cuda_remap.K3_RGB, 0) == 0:
-                raise SmokeFailure(f"tracker_eval {name}: {cuda_remap.K3_RGB} not launched (counts {counts})")
+            cli_sweeps = auction_sweeps(cuda_auction.sweep_log)
+            cuda_auction.sweep_log = None
+            for key in (cuda_remap.K3_RGB, cuda_auction.NAME):
+                if counts.get(key, 0) == 0:
+                    raise SmokeFailure(f"tracker_eval {name}: {key} not launched (counts {counts})")
             path = os.path.join(out_dir, name, "0000.txt")
             os.makedirs(os.path.dirname(path), exist_ok=True)
             with open(path, "w") as f:
                 f.writelines(ln + "\n" for ln in mots_lines(recents, (h, w)))
             runs[name] = {"args": args, "built": built, "recents": recents, "stats": stats, "counts": counts,
-                          "txt": path}
+                          "cli_auction": cli_sweeps, "txt": path}
     finally:
         for path in (model_path, head_path):
             os.remove(path)
@@ -924,7 +1119,7 @@ def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
             xb = torch.from_numpy(batch_np).to(dev)
             return tracker.materialize(tracker.process_frames_async(pre(xb, with_gray=False)[0]))
 
-        stages = tracker_stages(tracker, pre, batch_np, dev)
+        stages, assoc_stats = tracker_stages(tracker, pre, batch_np, dev)
         batch_ms = wall_ms(batch)
         torch.cuda.reset_peak_memory_stats()
         batch()
@@ -934,7 +1129,8 @@ def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
         if bool(convs) != (name == "bf16"):
             raise SmokeFailure(f"tracker_eval {name}: bf16 convolution kernels in the profiled batch: {convs[:4]} "
                                f"(kernels named bf16: {[k for k in prof['kernel_names'] if 'bf16' in k.lower()][:8]})")
-        timing[name] = {"stage_ms": stages, "batch_ms": round(batch_ms, 3),
+        timing[name] = {"stage_ms": stages, "association": assoc_stats, "cli_auction": run["cli_auction"],
+                        "batch_ms": round(batch_ms, 3),
                         "frames_per_s": round(TRACK_BATCH * 1e3 / batch_ms, 3),
                         "device_busy_ms": prof["device_busy_ms"], "device_idle_share": prof["device_idle_share"],
                         "kernel_launches": prof["kernel_launches"], "peak_mem_gib": round(peak / 2**30, 3),
@@ -968,17 +1164,21 @@ def assoc_step(state, det, emb, tcfg, metric: str, hw):
 
 
 def association_phase(frames_np, t8: dict, card: str, dev) -> dict:
-    """Phase 8's float32 detections and embeddings through ``bbox_center_dist``,
-    ``mask_iou`` and ``embeddings(exact=True)`` from an empty store, on the
-    card and on the CPU: identical valid, ids and classes frame by frame;
-    each metric's ms per batch.  Then ``linear_sum_assignment`` and
+    """Phase 8's float32 detections and embeddings through ``embeddings`` (the
+    default: the auction kernel), ``bbox_center_dist``, ``mask_iou`` and
+    ``embeddings(exact=True)`` from an empty store, on the card and on the
+    CPU: identical valid, ids and classes frame by frame; each metric's ms,
+    syncs, launches and auction sweeps per batch.  The auction kernel on the
+    real costs of the card's ``embeddings`` run (every frame, every budget)
+    against the plain version's CPU run, and timed on them.
+    Then ``linear_sum_assignment`` and
     ``auction_assignment`` on the card on seeded 32x32 costs, both ways: JV's
     cost equal to scipy's within float32 rounding, the auction within n x
     its last eps (spread / 4096); ms per solve."""
     import scipy.optimize
     import torch
 
-    from apse_uav_torch.dcnn import hungarian, structures
+    from apse_uav_torch.dcnn import cuda_auction, hungarian, structures
 
     tracker, pre = t8["built"]
     n, hw = frames_np.shape[0], tuple(frames_np.shape[1:3])
@@ -989,16 +1189,28 @@ def association_phase(frames_np, t8: dict, card: str, dev) -> dict:
         batches.append(tracker.embed(dets, feats))
     tcfg = tracker.cfg
     res = {}
-    for metric in ("bbox_center_dist", "mask_iou", "embeddings_exact"):
+    real = []  # the auction's inputs in the card's embeddings run
+    solve = cuda_auction.solve
+
+    def recording(cost, row_valid, col_valid, threshold, max_sweeps=AUCTION_BUDGET):
+        real.append((cost.clone(), row_valid.clone(), col_valid.clone()))
+        return solve(cost, row_valid, col_valid, threshold, max_sweeps)
+
+    for metric in ("embeddings", "bbox_center_dist", "mask_iou", "embeddings_exact"):
         ids = {}
         for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
             state = structures.init_track_state(tcfg.max_tracks, tcfg.embedding_dim, device=device)
             out = []
-            for det, emb in batches:
-                for t in range(emb.shape[0]):
-                    state, recent = assoc_step(state, {k: v[t].to(device) for k, v in det.items()},
-                                               emb[t].to(device), tcfg, metric, hw)
-                    out.append({k: recent[k].cpu().numpy() for k in ("valid", "ids", "classes")})
+            if metric == "embeddings" and key == "card":
+                cuda_auction.solve = recording
+            try:
+                for det, emb in batches:
+                    for t in range(emb.shape[0]):
+                        state, recent = assoc_step(state, {k: v[t].to(device) for k, v in det.items()},
+                                                   emb[t].to(device), tcfg, metric, hw)
+                        out.append({k: recent[k].cpu().numpy() for k in ("valid", "ids", "classes")})
+            finally:
+                cuda_auction.solve = solve
             ids[key] = out
         for i, (g, c) in enumerate(zip(ids["card"], ids["cpu"])):
             for k in g:
@@ -1016,9 +1228,15 @@ def association_phase(frames_np, t8: dict, card: str, dev) -> dict:
                 s, _ = assoc_step(s, {k: v[t] for k, v in det0.items()}, emb0[t], tcfg, metric, hw)
             return s
 
-        res[metric] = {"ms_per_batch": round(wall_ms(one_batch), 3),
+        ms = wall_ms(one_batch)
+        res[metric] = {"ms_per_batch": round(ms, 3), "batch": association_stats(one_batch, ms),
                        "tracks": [int(r["valid"].sum()) for r in ids["card"]],
                        "max_id": int(max(int(r["ids"][r["valid"]].max(initial=0)) for r in ids["card"]))}
+    thr = tcfg.embedding_dist_threshold
+    if len(real) != n:
+        raise SmokeFailure(f"association: the auction ran {len(real)} times for {n} frames")
+    auction = {"real_costs": auction_check([("real", tuple(a.cpu() for a in r)) for r in real], dev, thr),
+               "timing_real_costs": auction_timing(real, thr)}
     solvers = {}
     for seed in range(3):
         c = np.random.default_rng(seed).uniform(0, 4, (32, 32)).astype(np.float32)
@@ -1038,8 +1256,8 @@ def association_phase(frames_np, t8: dict, card: str, dev) -> dict:
                 entry["max_cost_gap"] = max(entry["max_cost_gap"], abs(got - best))
                 if seed == 0 and not maximize:
                     entry["ms_per_solve"] = round(wall_ms(lambda: fn(ct, maximize)), 3)
-    log({"phase": "association", "frames": n, "metrics": res, "solvers": solvers, "card": card})
-    return res
+    log({"phase": "association", "frames": n, "metrics": res, "auction": auction, "solvers": solvers, "card": card})
+    return {"metrics": res, "auction": auction}
 
 
 def detector_phase(frames_np, card: str, dev) -> dict:
@@ -2560,6 +2778,16 @@ def main(argv=None) -> int:
                            "remap_full_rgb": "F.grid_sample f32, no LAB chain"},
          "card": card})
 
+    # The gated auction (the tracker's solver) at the tracker's 32 x 32: seeded
+    # and crafted problems at every budget against the plain version's CPU run,
+    # one call under sync-as-error, timed on a seeded problem.
+    problems = auction_problems()
+    a5 = auction_check(problems, dev)
+    _, (c5, rv5, cv5) = problems[0]
+    log({"phase": "auction", **a5, "timing_random_32x32": auction_timing(
+        [(torch.from_numpy(c5).to(dev), torch.from_numpy(rv5).to(dev), torch.from_numpy(cv5).to(dev))], 0.6),
+        "card": card})
+
     # -- 6. GPU against CPU, two-pass ---------------------------------------------
     cpipe = ArucoPipeline(mtx, dist, (W, H), cfg, device="cpu")
     log({"phase": "gpu-cpu", **gpu_vs_cpu(pipe, cpipe, cfg, frames[:2], dev)})
@@ -2572,9 +2800,18 @@ def main(argv=None) -> int:
     # -- 8.-10. tracker_test (float32 and bf16), association, detector_test -------
     t8 = tracker_eval_phase(frames_np, t7, card, dev)
     ckpt = t7["ckpt"]
+    auction_launches = t7["counts"].get("auction", 0)
     del t7
-    association_phase(frames_np, t8, card, dev)
+    a9 = association_phase(frames_np, t8, card, dev)["auction"]
     del t8
+    # The auction's row: launches on track_uav's path (phase 7), times and bound
+    # per solve on the real costs of phase 9.
+    t9 = a9["timing_real_costs"]
+    kernels.append({"name": "auction", "route": "cuda", "source": "apse_uav_torch/csrc/auction.cu",
+                    "replaces": REPLACES["auction"], "launches": auction_launches,
+                    "max_abs_err": float(a5["mismatches"] + a9["real_costs"]["mismatches"]), "ms": t9["ms"],
+                    "kernel_ms": t9["kernel_ms"], "plain_ms": t9["plain_ms"], "bound_ms": t9["bound_ms"],
+                    "bound_by": t9["bound_by"], "library_ms": None})
     detector_phase(frames_np, card, dev)
 
     # -- 11.-13. training: the association head, the detector, the learning bar --

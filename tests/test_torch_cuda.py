@@ -21,8 +21,9 @@ import torch
 from apse_uav_torch.aruco import cuda_labeling, cuda_proposals, detector as det
 from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
 from apse_uav_torch.core import camera
+from apse_uav_torch.dcnn import cuda_auction, hungarian
 from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
-from apse_uav_torch.utils.synthetic import MarkerSpec, labeling_masks, render_scene
+from apse_uav_torch.utils.synthetic import AUCTION_KINDS, MarkerSpec, auction_problem, labeling_masks, render_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -554,3 +555,89 @@ def test_dp_step_on_one_nccl_rank_matches_plain_step(dev):
         np.testing.assert_allclose(losses[k], v, rtol=1e-6, atol=1e-7, err_msg=k)
     for k, v in want_state.items():
         np.testing.assert_allclose(state[k], v, rtol=1e-6, atol=1e-7, err_msg=k)
+
+
+@pytest.mark.parametrize("shape", [(32, 32), (32, 20), (20, 32), (8, 3), (1, 5), (40, 70)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_auction_kernel_bit_identical(dev, shape):
+    """The gated auction kernel against the plain version's CPU run on 8
+    seeded problems of every kind, at the tracker's budget of 128 sweeps and
+    at 1, 2, 3 and 5: identical col_of_row and sweep counts.  The CPU run is
+    the reference: the plain version's max(dim) on the card may break an
+    exact tie another way.  40 x 70 takes two rows a warp and three columns a
+    lane; 1 x 5 one warp."""
+    rows, cols = shape
+    rng = np.random.default_rng(rows * 1000 + cols)
+    exhausted = 0
+    for kind in AUCTION_KINDS:
+        for _ in range(8):
+            t = [torch.from_numpy(a) for a in auction_problem(kind, rng, rows, cols)]
+            for budget in (128, 1, 2, 3, 5):
+                want, want_sweeps = hungarian.gated_auction_sweeps(*t, 0.6, budget)
+                got, sweeps = cuda_auction.solve(*(a.to(dev) for a in t), 0.6, budget)
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want), (kind, budget)
+                assert int(sweeps.cpu()[0]) == int(want_sweeps[0]), (kind, budget)
+                exhausted += budget < 128 and int(want_sweeps[0]) == budget
+    assert exhausted > 0
+
+
+def test_auction_input_checks(dev):
+    """The wrapper refuses what the kernel does not take on the card:
+    non-contiguous costs, inputs on two devices, more than 1,024 rows."""
+    cost = torch.rand((8, 6), device=dev)
+    rv, cv = torch.ones(8, dtype=torch.bool, device=dev), torch.ones(6, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_auction.solve(torch.rand((6, 8), device=dev).t(), rv, cv, 0.6)
+    with pytest.raises(ValueError):
+        cuda_auction.solve(cost, rv.cpu(), cv, 0.6)
+    big = torch.rand((cuda_auction.MAX_ROWS + 1, 6), device=dev)
+    with pytest.raises(ValueError):
+        cuda_auction.solve(big, torch.ones(big.shape[0], dtype=torch.bool, device=dev), cv, 0.6)
+
+
+def association_sequence(frames: int = 6, slots: int = 32, objects: int = 40, dim: int = 128, seed: int = 0):
+    """A seeded association input at the CLIs' TrackerConfig (32 tracks, 32
+    detections, 128-d embeddings): each frame sees a random subset of the
+    objects in shuffled slots, embeddings the object's unit vector plus noise
+    (squared distances ~0.2 to the same object, ~2 to another), some slots
+    invalid.  Returns (det fields (B, D, ...), embeddings (B, D, E)) as numpy."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(objects, dim))
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    seen = np.stack([rng.permutation(objects)[:slots] for _ in range(frames)])
+    emb = (base[seen] + rng.normal(0, 0.03, (frames, slots, dim))).astype(np.float32)
+    det = {"valid": rng.uniform(size=(frames, slots)) < 0.7,
+           "boxes": np.sort(rng.uniform(0, 500, (frames, slots, 4)), axis=-1).astype(np.float32),
+           "scores": rng.uniform(0.5, 1, (frames, slots)).astype(np.float32),
+           "classes": rng.integers(0, 4, (frames, slots)),
+           "masks": rng.uniform(size=(frames, slots, 28, 28)).astype(np.float32)}
+    return det, emb
+
+
+def test_associate_frames_cuda_matches_cpu(dev):
+    """``associate_frames`` under the default metric at the CLIs' 32 x 32 on
+    the card (the auction kernel, one launch a frame) against the CPU (the
+    plain version): every snapshot field equal, the kernel launched once a
+    frame, no convergence test of the auction."""
+    from apse_uav_torch import _build
+    from apse_uav_torch.dcnn import structures, tracker
+    from apse_uav_torch.dcnn.config import TrackerConfig
+    from apse_uav_torch.dcnn.ops import loops
+
+    tcfg = TrackerConfig()
+    det, emb = association_sequence()
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        state = structures.init_track_state(tcfg.max_tracks, tcfg.embedding_dim, device=device)
+        _build.reset_counts()
+        loops.reset_checks()
+        _, recent = tracker.associate_frames(state, {k: torch.from_numpy(v).to(device) for k, v in det.items()},
+                                             torch.from_numpy(emb).to(device), tcfg, (500, 500))
+        out[device.type] = {k: v.cpu() for k, v in recent.items()}
+        if device.type == "cuda":
+            assert _build.launches.get(cuda_auction.NAME, 0) == emb.shape[0]
+            assert loops.checks["count"] == 0
+    assert int(out["cpu"]["valid"][-1].sum()) > 0  # the store is full from frame 2: these tracks matched
+    for k, want in out["cpu"].items():
+        assert torch.equal(out["cuda"][k], want), k
