@@ -18,8 +18,8 @@
 // ordered as torch orders them; the tracker's costs are finite squared distances.
 //
 // What bounds it on the H100: the chain of dependent sweeps.  At the tracker's 32x32 a sweep is
-// ~6 x 1,024 operations on 4 KB of costs: the bound (bytes once, operations of the sweeps run)
-// is a few nanoseconds, and each sweep's barriers and shuffles cost more.  The design keeps the
+// ~3 x 32 operations for each row that bids, on 4 KB of costs: the bound (bytes once, the bidding
+// rows' operations) is about a nanosecond, and each sweep's barriers and shuffles cost more.  The design keeps the
 // chain on the card, where the plain version takes ~35 launches a sweep and a host sync every 4
 // sweeps:
 // - one block a problem, a warp a row (rows r, r + warps, ... where R exceeds 32 warps), a lane a

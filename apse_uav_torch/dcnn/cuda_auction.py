@@ -8,9 +8,9 @@ it launches the kernel, one launch a problem and no host sync, or raises.
 The result is bit-identical either way: the kernel runs the plain version's
 float32 operations in its order, with its ties to the lower index.
 
-The sweep count of each call stays on the tensor's device: :data:`last_sweeps`
-holds the last one, and while :data:`sweep_log` is a list every call appends
-its count there.  Nothing here reads them back.
+The sweep count of each call stays on the tensor's device: :func:`solve`
+returns it and :data:`last_sweeps` holds the last one.  Nothing here reads
+it back.
 """
 
 from __future__ import annotations
@@ -29,8 +29,6 @@ MAX_COLS = 1024
 
 # The last call's sweep count, (1,) int32 on the input's device.
 last_sweeps: torch.Tensor | None = None
-# Set to a list to keep every call's sweep count (None: keep none).
-sweep_log: list[torch.Tensor] | None = None
 
 
 def solve(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, threshold: float,
@@ -50,7 +48,7 @@ def solve(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, 
     if not (1 <= n_rows <= MAX_ROWS and 1 <= n_cols <= MAX_COLS):
         raise ValueError(f"cost {n_rows} x {n_cols}: the auction takes 1..{MAX_ROWS} rows and 1..{MAX_COLS} columns")
     if cost.device.type == "cpu":
-        col_of_row, sweeps = gated_auction_sweeps(cost, row_valid, col_valid, threshold, max_sweeps)
+        col_of_row, sweeps, _ = gated_auction_sweeps(cost, row_valid, col_valid, threshold, max_sweeps)
     else:
         if not (cost.is_contiguous() and row_valid.is_contiguous() and col_valid.is_contiguous()):
             raise ValueError("cost, row_valid and col_valid must be contiguous")
@@ -65,8 +63,6 @@ def solve(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, 
         _build.check(err, "auction_kernel")
         _build.count(NAME)
     last_sweeps = sweeps
-    if sweep_log is not None:
-        sweep_log.append(sweeps)
     return col_of_row, sweeps
 
 

@@ -51,10 +51,12 @@ def gated_auction_match(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: 
 
 
 def gated_auction_sweeps(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, threshold: float,
-                         max_sweeps: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`gated_auction_match` and the number of sweeps it ran, (1,) int32:
-    the reference loop's iterations, at most ``max_sweeps``.  The plain version
-    of the ``csrc/auction.cu`` kernel (``dcnn/cuda_auction.py``)."""
+                         max_sweeps: int = 128) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`gated_auction_match`, the number of sweeps it ran, (1,) int32
+    (the reference loop's iterations, at most ``max_sweeps``), and the rows
+    bidding at the start of each of those sweeps, summed, (1,) int32 (the
+    rows a sweep scans).  The plain version of the ``csrc/auction.cu`` kernel
+    (``dcnn/cuda_auction.py``)."""
     cost = cost.to(torch.float32)
     n_rows, n_cols = cost.shape
     dev = cost.device
@@ -67,7 +69,7 @@ def gated_auction_sweeps(cost: torch.Tensor, row_valid: torch.Tensor, col_valid:
     cols = torch.arange(n_cols, device=dev)
 
     def sweep(state):
-        col_of_row, owner, prices, sweeps = state
+        col_of_row, owner, prices, sweeps, scanned = state
         bidding = col_of_row == _BIDDING
         values = benefit - prices[None, :]
         v1, j_star = values.max(dim=1)
@@ -90,13 +92,16 @@ def gated_auction_sweeps(cost: torch.Tensor, row_valid: torch.Tensor, col_valid:
         owner = torch.where(got, best_row, owner)
         col_of_row = set_at(col_of_row, torch.where(got, best_row, n_rows), cols)
         # A sweep past the end (no row bidding) changes nothing and is not counted.
-        return col_of_row, owner, prices, sweeps + bidding.any().to(torch.int32)
+        return (col_of_row, owner, prices, sweeps + bidding.any().to(torch.int32),
+                scanned + bidding.sum().to(torch.int32))
 
     col0 = torch.where(row_valid, torch.full((n_rows,), _BIDDING, device=dev), torch.full((n_rows,), _NULL, device=dev))
     state = (col0, torch.full((n_cols,), -1, dtype=torch.int64, device=dev),
-             torch.zeros(n_cols, dtype=torch.float32, device=dev), torch.zeros(1, dtype=torch.int32, device=dev))
-    col_of_row, _, _, sweeps = run_until(sweep, state, lambda s: ~(s[0] == _BIDDING).any(), max_sweeps, CHECK_EVERY)
-    return torch.where(col_of_row == _BIDDING, torch.full_like(col_of_row, _NULL), col_of_row), sweeps
+             torch.zeros(n_cols, dtype=torch.float32, device=dev), torch.zeros(1, dtype=torch.int32, device=dev),
+             torch.zeros(1, dtype=torch.int32, device=dev))
+    col_of_row, _, _, sweeps, scanned = run_until(sweep, state, lambda s: ~(s[0] == _BIDDING).any(), max_sweeps,
+                                                  CHECK_EVERY)
+    return torch.where(col_of_row == _BIDDING, torch.full_like(col_of_row, _NULL), col_of_row), sweeps, scanned
 
 
 def pad_cost(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, pad_value: float = _BIG):

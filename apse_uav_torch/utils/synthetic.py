@@ -369,10 +369,6 @@ def labeling_masks(win: int) -> dict[str, np.ndarray]:
     }
 
 
-# Background logit bias of the synthetic class head: only the tail of the
-# proposals scores above 0.5, so the detections are few and their scores far
-# apart.  Mask logit bias: masks are on over nearly the whole box, so no mask
-# cell sits at the 0.5 threshold.
 AUCTION_KINDS = ("random", "ties", "invalid", "above", "contested")
 
 
@@ -399,6 +395,10 @@ def auction_problem(kind: str, rng: np.random.Generator, rows: int, cols: int):
     return cost, rv, cv
 
 
+# Background logit bias of the synthetic class head: only the tail of the
+# proposals scores above 0.5, so the detections are few and their scores far
+# apart.  Mask logit bias: masks are on over nearly the whole box, so no mask
+# cell sits at the 0.5 threshold.
 CLS_BG_BIAS = 4.0
 MASK_BIAS = 5.0
 

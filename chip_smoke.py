@@ -261,6 +261,7 @@ Exits non-zero without a result when no CUDA device is available or when the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -544,12 +545,36 @@ def tracker_stages(tracker, pre, frames_np, dev) -> tuple[dict, dict]:
     return {k: round(v, 3) for k, v in times.items()}, assoc
 
 
-def auction_sweeps(log: list) -> dict:
-    """Sweeps per frame of the auction calls in ``log`` (``cuda_auction.sweep_log``)
-    and how many frames reached the budget."""
+@contextlib.contextmanager
+def auction_calls(inputs: list | None = None):
+    """Records every ``cuda_auction.solve`` call in the block (the tracker's
+    ``gated_auction_match`` goes through it): yields the list of the calls'
+    sweep counts, left on the card until read.  With ``inputs`` a list, each
+    call's (cost, row_valid, col_valid) is cloned into it too."""
+    from apse_uav_torch.dcnn import cuda_auction
+
+    solve, sweeps = cuda_auction.solve, []
+
+    def recording(cost, row_valid, col_valid, threshold, max_sweeps=AUCTION_BUDGET):
+        if inputs is not None:
+            inputs.append((cost.clone(), row_valid.clone(), col_valid.clone()))
+        col_of_row, n = solve(cost, row_valid, col_valid, threshold, max_sweeps)
+        sweeps.append(n)
+        return col_of_row, n
+
+    cuda_auction.solve = recording
+    try:
+        yield sweeps
+    finally:
+        cuda_auction.solve = solve
+
+
+def auction_sweeps(counts: list) -> dict:
+    """Sweeps per frame of the auction calls' sweep counts ``counts`` (from
+    ``auction_calls``) and how many frames reached the budget."""
     import torch
 
-    sweeps = torch.cat(log).cpu().tolist() if log else []
+    sweeps = torch.cat(counts).cpu().tolist() if counts else []
     return {"auction_sweeps_per_frame": sweeps, "frames_at_sweep_budget": sum(v >= AUCTION_BUDGET for v in sweeps)}
 
 
@@ -563,12 +588,9 @@ def association_stats(associate, ms: float) -> dict:
     syncs = count_syncs(associate)
     prof = profile_call(associate, ms)
     before = _build.launches.get(cuda_auction.NAME, 0)
-    cuda_auction.sweep_log = []
-    try:
+    with auction_calls() as counts:
         associate()
-        sweeps = auction_sweeps(cuda_auction.sweep_log)
-    finally:
-        cuda_auction.sweep_log = None
+    sweeps = auction_sweeps(counts)
     return {"ms": round(ms, 3), "syncs": syncs, "kernel_launches": prof["kernel_launches"],
             "device_busy_ms": prof["device_busy_ms"], "auction_launches": _build.launches.get(cuda_auction.NAME, 0)
             - before, **sweeps}
@@ -644,12 +666,15 @@ def auction_problems(n_per_kind: int = 40, n: int = 32) -> list[tuple[str, tuple
     return out
 
 
-def auction_bound(rows: int, cols: int, sweeps: int) -> tuple[float, str]:
+def auction_bound(rows: int, cols: int, scanned: int) -> tuple[float, str]:
     """The gated auction's bound: the costs, the two masks and the outputs
-    once; ~6 operations a cost entry a sweep (negate, subtract the price, two
-    compares of the row scan, one of the column scan, the bid) over the
-    sweeps this problem ran."""
-    return bound(rows * cols * 4 + rows + cols + rows * 8 + 4, 6 * rows * cols * sweeps)
+    once; 2 operations a cost entry once (negate, the spread's max), and for
+    each row bidding at the start of a sweep 3 a column (subtract the price,
+    the row scan's two compares) and 4 more (the exit compare, the bid's two
+    adds, the compare into its column's best bid).  ``scanned`` is this
+    problem's bidding rows summed over its sweeps (the plain version's third
+    output): rows that hold a column or have exited do no work in a sweep."""
+    return bound(rows * cols * 4 + rows + cols + rows * 8 + 4, 2 * rows * cols + scanned * (3 * cols + 4))
 
 
 def auction_check(problems, dev, threshold: float = 0.6, budgets=(AUCTION_BUDGET, 1, 2, 3, 5)) -> dict:
@@ -657,8 +682,9 @@ def auction_check(problems, dev, threshold: float = 0.6, budgets=(AUCTION_BUDGET
     ((kind, (cost, row_valid, col_valid)) with numpy or CPU tensors) at each
     sweep budget: col_of_row and the sweep count identical, or SmokeFailure.
     (The plain version on the card is no reference: its max(dim) may break
-    an exact tie another way.)  Returns the counts and the full budget's
-    sweeps per problem."""
+    an exact tie another way.)  Returns the counts, the largest difference
+    in a column index or a sweep count over all solves (``max_abs_err``)
+    and the full budget's sweeps per problem."""
     import torch
 
     from apse_uav_torch.dcnn import cuda_auction, hungarian
@@ -667,18 +693,20 @@ def auction_check(problems, dev, threshold: float = 0.6, budgets=(AUCTION_BUDGET
     for kind, arrays in problems:
         t = [torch.as_tensor(a) for a in arrays]
         for budget in budgets:
-            want.append((kind, budget, hungarian.gated_auction_sweeps(*t, threshold, budget)))
+            want.append((kind, budget, hungarian.gated_auction_sweeps(*t, threshold, budget)[:2]))
             got.append(cuda_auction.solve(*(a.to(dev) for a in t), threshold, budget))
     torch.cuda.synchronize()
-    sweeps, exhausted = [], 0
+    sweeps, exhausted, errs = [], 0, []
     for (kind, budget, (wcol, wsw)), (gcol, gsw) in zip(want, got):
-        if not torch.equal(gcol.cpu(), wcol) or int(gsw.cpu()[0]) != int(wsw[0]):
-            raise SmokeFailure(f"auction kernel vs plain, {kind}, budget {budget}: {gcol.cpu().tolist()} "
-                               f"({int(gsw.cpu()[0])} sweeps) vs {wcol.tolist()} ({int(wsw[0])} sweeps)")
+        gcol, gsw, wsw = gcol.cpu(), int(gsw.cpu()[0]), int(wsw[0])
+        errs.append(max(int((gcol - wcol).abs().max()), abs(gsw - wsw)))
+        if errs[-1] > 0:
+            raise SmokeFailure(f"auction kernel vs plain, {kind}, budget {budget}: {gcol.tolist()} "
+                               f"({gsw} sweeps) vs {wcol.tolist()} ({wsw} sweeps)")
         if budget == AUCTION_BUDGET:
-            sweeps.append(int(wsw[0]))
-        exhausted += int(wsw[0]) == budget
-    return {"problems": len(problems), "budgets": list(budgets), "solves": len(got), "mismatches": 0,
+            sweeps.append(wsw)
+        exhausted += wsw == budget
+    return {"problems": len(problems), "budgets": list(budgets), "solves": len(got), "max_abs_err": max(errs),
             "solves_at_budget": exhausted, "sweeps_max": max(sweeps), "sweeps_mean": round(float(np.mean(sweeps)), 3)}
 
 
@@ -686,8 +714,9 @@ def auction_timing(problems, threshold: float) -> dict:
     """The auction on the card, per solve over ``problems`` ((cost, row_valid,
     col_valid) on the card, solved one after another): the wrapper's ms (CUDA
     events), its kernel's device ms (torch.profiler), the plain version's ms
-    on the card, the mean sweeps and bound (``auction_bound`` per problem);
-    one solve under sync-as-error."""
+    on the card, the mean sweeps, bidding rows scanned and bound
+    (``auction_bound`` per problem, its work counted by the plain version's
+    CPU run); one solve under sync-as-error."""
     import torch
 
     from apse_uav_torch.dcnn import cuda_auction, hungarian
@@ -697,8 +726,10 @@ def auction_timing(problems, threshold: float) -> dict:
     def kern():
         return [cuda_auction.solve(*p, threshold) for p in problems]
 
-    sweeps = [int(s.cpu()[0]) for _, s in kern()]
-    bounds = [auction_bound(*p[0].shape, k) for p, k in zip(problems, sweeps)]
+    kern()
+    plain = [hungarian.gated_auction_sweeps(*(a.cpu() for a in p), threshold) for p in problems]
+    sweeps, scanned = [int(s[0]) for _, s, _ in plain], [int(b[0]) for _, _, b in plain]
+    bounds = [auction_bound(*p[0].shape, b) for p, b in zip(problems, scanned)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -711,9 +742,10 @@ def auction_timing(problems, threshold: float) -> dict:
     plain_ms = cuda_ms(lambda: [hungarian.gated_auction_sweeps(*p, threshold) for p in problems], 3, 1)
     b_ms = sum(b for b, _ in bounds) / n
     return {"problems": n, "shape": list(problems[0][0].shape), "sweeps_mean": sum(sweeps) / n,
+            "bidding_rows_scanned_mean": sum(scanned) / n,
             "ms": round(cuda_ms(kern, iters=20, warmup=3) / n, 4),
             "kernel_ms": None if kms is None else round(kms / n, 4), "plain_ms": round(plain_ms / n, 4),
-            "bound_ms": round(b_ms, 7), "bound_by": max(bounds)[1]}
+            "bound_ms": b_ms, "bound_by": max(bounds)[1]}
 
 
 def calibrate_background(ckpt: dict, cfg, pre, frames_np, dev, per_frame: int = 10) -> dict:
@@ -853,17 +885,16 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
                                       "--preprocess", cam_json, "--log_file", csv_path, "--batch", str(TRACK_BATCH),
                                       "--confidence", str(TRACK_CONFIDENCE), "--device", dev.type])
     try:
-        cuda_auction.sweep_log = []
-        _build.reset_counts()
-        loops.reset_checks()
-        t0 = time.perf_counter()
-        res = track(args, ((i, frames_np[i]) for i in range(n)), on_frame=lambda i, r: snaps.__setitem__(i, r))
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        counts, cli_checks = dict(_build.launches), loops.checks["count"]
-        cli_sweeps = auction_sweeps(cuda_auction.sweep_log)
+        with auction_calls() as sweep_counts:
+            _build.reset_counts()
+            loops.reset_checks()
+            t0 = time.perf_counter()
+            res = track(args, ((i, frames_np[i]) for i in range(n)), on_frame=lambda i, r: snaps.__setitem__(i, r))
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            counts, cli_checks = dict(_build.launches), loops.checks["count"]
+        cli_sweeps = auction_sweeps(sweep_counts)
     finally:
-        cuda_auction.sweep_log = None
         os.remove(weights_path)
     for key in (cuda_remap.K3_RGB, cuda_auction.NAME):
         if counts.get(key, 0) == 0:
@@ -1030,13 +1061,12 @@ def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
         for name, extra in (("float32", []), ("bf16", ["--bf16"])):
             args = tracker_test.build_parser().parse_args(flags + extra)
             built = tracker_test.build_tracker(args, (h, w))
-            cuda_auction.sweep_log = []
-            _build.reset_counts()
-            recents, stats = tracker_test.track_sequence(args, list(frames_np), built)
-            torch.cuda.synchronize()
-            counts = dict(_build.launches)
-            cli_sweeps = auction_sweeps(cuda_auction.sweep_log)
-            cuda_auction.sweep_log = None
+            with auction_calls() as sweep_counts:
+                _build.reset_counts()
+                recents, stats = tracker_test.track_sequence(args, list(frames_np), built)
+                torch.cuda.synchronize()
+                counts = dict(_build.launches)
+            cli_sweeps = auction_sweeps(sweep_counts)
             for key in (cuda_remap.K3_RGB, cuda_auction.NAME):
                 if counts.get(key, 0) == 0:
                     raise SmokeFailure(f"tracker_eval {name}: {key} not launched (counts {counts})")
@@ -1190,27 +1220,17 @@ def association_phase(frames_np, t8: dict, card: str, dev) -> dict:
     tcfg = tracker.cfg
     res = {}
     real = []  # the auction's inputs in the card's embeddings run
-    solve = cuda_auction.solve
-
-    def recording(cost, row_valid, col_valid, threshold, max_sweeps=AUCTION_BUDGET):
-        real.append((cost.clone(), row_valid.clone(), col_valid.clone()))
-        return solve(cost, row_valid, col_valid, threshold, max_sweeps)
-
     for metric in ("embeddings", "bbox_center_dist", "mask_iou", "embeddings_exact"):
         ids = {}
         for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
             state = structures.init_track_state(tcfg.max_tracks, tcfg.embedding_dim, device=device)
             out = []
-            if metric == "embeddings" and key == "card":
-                cuda_auction.solve = recording
-            try:
+            with auction_calls(real if metric == "embeddings" and key == "card" else None):
                 for det, emb in batches:
                     for t in range(emb.shape[0]):
                         state, recent = assoc_step(state, {k: v[t].to(device) for k, v in det.items()},
                                                    emb[t].to(device), tcfg, metric, hw)
                         out.append({k: recent[k].cpu().numpy() for k in ("valid", "ids", "classes")})
-            finally:
-                cuda_auction.solve = solve
             ids[key] = out
         for i, (g, c) in enumerate(zip(ids["card"], ids["cpu"])):
             for k in g:
@@ -2809,7 +2829,7 @@ def main(argv=None) -> int:
     t9 = a9["timing_real_costs"]
     kernels.append({"name": "auction", "route": "cuda", "source": "apse_uav_torch/csrc/auction.cu",
                     "replaces": REPLACES["auction"], "launches": auction_launches,
-                    "max_abs_err": float(a5["mismatches"] + a9["real_costs"]["mismatches"]), "ms": t9["ms"],
+                    "max_abs_err": float(max(a5["max_abs_err"], a9["real_costs"]["max_abs_err"])), "ms": t9["ms"],
                     "kernel_ms": t9["kernel_ms"], "plain_ms": t9["plain_ms"], "bound_ms": t9["bound_ms"],
                     "bound_by": t9["bound_by"], "library_ms": None})
     detector_phase(frames_np, card, dev)

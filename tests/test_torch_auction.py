@@ -5,10 +5,13 @@ On a CPU tensor the wrapper runs the plain version, which is the oracle of
 the ``csrc/auction.cu`` kernel (``tests/test_torch_cuda.py`` holds the kernel
 to it on the card).  Problems are made with numpy from fixed seeds and handed
 to both packages; assignments must be identical, budget exits included.  The
-sweep count is pinned through JAX: its loop stopped after that many sweeps
-gives the same matching.
+sweep count is pinned through JAX: it is the number of iterations of the
+reference's ``lax.while_loop``, counted on an un-jitted run.
 """
 
+from unittest import mock
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +33,19 @@ def problem(kind: str, rng):
 def jax_match(cost, rv, cv, thr, max_sweeps=128):
     return np.asarray(jhung.gated_auction_match(jnp.asarray(cost), jnp.asarray(rv), jnp.asarray(cv), thr,
                                                 max_sweeps=max_sweeps))
+
+
+def jax_loop_sweeps(cost, rv, cv, thr, max_sweeps=128) -> int:
+    """The iterations of the ``lax.while_loop`` in JAX's ``gated_auction_match``:
+    run without jit, the loop runs in Python and each body call is counted."""
+    loop, calls = jax.lax.while_loop, []
+
+    def counting(cond, body, init):
+        return loop(cond, lambda s: calls.append(1) or body(s), init)
+
+    with mock.patch.object(jax.lax, "while_loop", counting), jax.disable_jit():
+        jax_match(cost, rv, cv, thr, max_sweeps)
+    return len(calls)
 
 
 def wrapper(cost, rv, cv, thr, max_sweeps=128):
@@ -76,16 +92,21 @@ def test_budget_exit_matches_jax(budget):
     assert exhausted >= 2
 
 
-def test_sweep_log_keeps_counts():
-    """last_sweeps holds the last call's count; sweep_log, while a list, every call's."""
-    rng = np.random.default_rng(20)
-    cuda_auction.sweep_log = []
-    try:
-        counts = [wrapper(*problem(kind, rng), 0.6)[1] for kind in ("random", "contested")]
-        assert [int(s[0]) for s in cuda_auction.sweep_log] == counts
-        assert int(cuda_auction.last_sweeps[0]) == counts[-1]
-    finally:
-        cuda_auction.sweep_log = None
+@pytest.mark.parametrize("kind", KINDS)
+def test_sweep_count_is_jax_loop_count(kind):
+    """The wrapper's sweep count is exactly the number of iterations of JAX's
+    loop, at the full budget and at a budget of 3; the plain version's
+    bidding-row total lies between the sweeps and rows x sweeps; last_sweeps
+    holds the last call's count."""
+    rng = np.random.default_rng(30 + KINDS.index(kind))
+    cost, rv, cv = problem(kind, rng)
+    for budget in (128, 3):
+        got = wrapper(cost, rv, cv, 0.6, budget)[1]
+        assert got == jax_loop_sweeps(cost, rv, cv, 0.6, budget), budget
+        assert int(cuda_auction.last_sweeps[0]) == got
+        t = [torch.from_numpy(a) for a in (cost, rv, cv)]
+        _, sweeps, bids = thung.gated_auction_sweeps(*t, 0.6, budget)
+        assert int(sweeps[0]) == got and got <= int(bids[0]) <= int(rv.sum()) * got
 
 
 BAD = {

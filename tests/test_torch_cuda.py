@@ -573,7 +573,7 @@ def test_auction_kernel_bit_identical(dev, shape):
         for _ in range(8):
             t = [torch.from_numpy(a) for a in auction_problem(kind, rng, rows, cols)]
             for budget in (128, 1, 2, 3, 5):
-                want, want_sweeps = hungarian.gated_auction_sweeps(*t, 0.6, budget)
+                want, want_sweeps, _ = hungarian.gated_auction_sweeps(*t, 0.6, budget)
                 got, sweeps = cuda_auction.solve(*(a.to(dev) for a in t), 0.6, budget)
                 torch.cuda.synchronize()
                 assert torch.equal(got.cpu(), want), (kind, budget)
