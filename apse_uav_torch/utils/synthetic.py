@@ -395,6 +395,24 @@ def auction_problem(kind: str, rng: np.random.Generator, rows: int, cols: int):
     return cost, rv, cv
 
 
+def auction_crafted(rng: np.random.Generator, rows: int, cols: int) -> list[tuple[str, tuple]]:
+    """Crafted (name, (cost, row_valid, col_valid)) problems for the gated
+    auction at threshold 0.6, rows x cols: equal costs (ties everywhere),
+    two columns near the threshold and two contested well below it (with
+    more rows than two, both run out of a small sweep budget), one column,
+    every cost at the threshold (every row exits), no valid row, no valid
+    column."""
+    yes_r, yes_c, no_r, no_c = np.ones(rows, bool), np.ones(cols, bool), np.zeros(rows, bool), np.zeros(cols, bool)
+    two, one = no_c.copy(), no_c.copy()
+    two[:2] = True
+    one[0] = True
+    full = lambda v: np.full((rows, cols), v, np.float32)  # noqa: E731
+    return [("equal", (full(0.3), yes_r, yes_c)), ("two_near_threshold", (full(0.59), yes_r, two)),
+            ("two_contested", ((0.3 + 1e-6 * rng.uniform(size=(rows, cols))).astype(np.float32), yes_r, two)),
+            ("one_column", (full(0.59), yes_r, one)), ("at_threshold", (full(0.6), yes_r, yes_c)),
+            ("no_rows", (full(0.3), no_r, yes_c)), ("no_columns", (full(0.3), yes_r, no_c))]
+
+
 # Background logit bias of the synthetic class head: only the tail of the
 # proposals scores above 0.5, so the detections are few and their scores far
 # apart.  Mask logit bias: masks are on over nearly the whole box, so no mask

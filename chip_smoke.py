@@ -41,15 +41,19 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    with CUDA events (the wrapper call) and torch.profiler (its
                    kernels' device time alone) beside the plain version and one
                    PyTorch library call where one computes (part of) the same
-                   function.  Then the tracker's gated auction kernel at its
-                   32x32: 200 seeded problems (every kind of
-                   ``utils.synthetic.auction_problem``) and 7 crafted ones
-                   (ties everywhere, budget exhaustion, one column, every cost
-                   at the threshold, no valid row or column), each at the
+                   function.  Then the tracker's gated auction kernels: the
+                   warp kernel at the tracker's 32x32 on 200 seeded problems
+                   (every kind of ``utils.synthetic.auction_problem``) and 7
+                   crafted ones (``auction_crafted``: ties everywhere, budget
+                   exhaustion, one column, every cost at the threshold, no
+                   valid row or column), the block kernel on 52 problems above
+                   32x32 (33x32, 32x33, 40x70, one at 1024x1024), each at the
                    budgets 128, 1, 2, 3 and 5, col_of_row and the sweep count
-                   identical to the plain version's CPU run; one call under
+                   identical to the plain version's CPU run and each solve on
+                   the kernel its shape takes (counted); one call under
                    sync-as-error; timed on a seeded problem with CUDA events
-                   and the profiler beside the plain version on the card.
+                   and the profiler beside the block kernel on the same
+                   problem and the plain version on the card.
 6. gpu-cpu      -- the first 2 frames through the two-pass port on the CPU
                    (plain versions) against the card's run.
 7. tracker      -- the DCNN tracking path: the same 8 frames (HWC, numpy) through
@@ -72,7 +76,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    synchronizes); the association stage's ms, syncs, kernel
                    launches and auction sweeps per frame, and the CLI run's
                    sweeps per frame and frames at the 128-sweep budget (the
-                   auction kernel must launch); and the first frame on the CPU (plain
+                   auction's warp kernel must launch once a frame, its block
+                   kernel never); and the first frame on the CPU (plain
                    versions) against the card: p2-p6 within 1e-4 of each map's
                    max-abs, the same valid ids and classes, boxes within 0.5 px,
                    the same CSV row.
@@ -93,7 +98,8 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    number of objects scored) and both
                    runs' stage ms, frames/s, device busy, idle share, launches
                    and peak memory, and phase 7's association and sweep figures
-                   (the auction kernel must launch in both runs).
+                   (the auction's warp kernel must launch once a frame and its
+                   block kernel never, in both runs).
 9. association  -- phase 8's float32 detections and embeddings through
                    ``embeddings`` (the auction kernel), ``bbox_center_dist``,
                    ``mask_iou`` and ``embeddings(exact=True)`` on the card and
@@ -102,7 +108,7 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    real costs of every frame at every budget against the plain
                    version's CPU run (identical), one call under sync-as-error,
                    timed per solve on those costs (the ``kernels`` line's
-                   auction row; its launches are phase 7's).
+                   ``auction_warp`` row; its launches are phase 7's).
                    ``linear_sum_assignment`` and
                    ``auction_assignment`` on seeded 32x32 costs, both ways: JV
                    at scipy's optimum, the auction within n x its last eps; ms
@@ -312,7 +318,7 @@ KERNEL_NAMES = {
     "pool": ("pool4_kernel",),
     "remap_full_rgb": ("remap_kernel",),
     "colour_table": ("table_kernel",),
-    "auction": ("auction_kernel",),
+    "auction": ("auction_kernel", "auction_warp_kernel"),
 }
 # The gated auction's sweep budget (gated_auction_match's max_sweeps default).
 AUCTION_BUDGET = 128
@@ -569,6 +575,16 @@ def auction_calls(inputs: list | None = None):
         cuda_auction.solve = solve
 
 
+def check_auction_launches(counts: dict, frames: int, where: str) -> None:
+    """The tracker's 32 x 32 association in ``counts`` (launches by kernel):
+    the warp kernel once a frame and the block kernel never, or SmokeFailure."""
+    from apse_uav_torch.dcnn import cuda_auction
+
+    got = {k: counts.get(k, 0) for k in cuda_auction.KERNELS}
+    if got != {cuda_auction.WARP: frames, cuda_auction.BLOCK: 0}:
+        raise SmokeFailure(f"{where}: auction launches {got} for {frames} frames (the warp kernel once a frame)")
+
+
 def auction_sweeps(counts: list) -> dict:
     """Sweeps per frame of the auction calls' sweep counts ``counts`` (from
     ``auction_calls``) and how many frames reached the budget."""
@@ -581,19 +597,19 @@ def auction_sweeps(counts: list) -> dict:
 def association_stats(associate, ms: float) -> dict:
     """One call of ``associate`` (a batch's association) on the card: its host
     syncs, its device kernels (profiled: launches, busy ms) and its auction
-    launches and sweeps per frame."""
+    launches (by kernel) and sweeps per frame."""
     from apse_uav_torch import _build
     from apse_uav_torch.dcnn import cuda_auction
 
     syncs = count_syncs(associate)
     prof = profile_call(associate, ms)
-    before = _build.launches.get(cuda_auction.NAME, 0)
+    before = {k: _build.launches.get(k, 0) for k in cuda_auction.KERNELS}
     with auction_calls() as counts:
         associate()
     sweeps = auction_sweeps(counts)
     return {"ms": round(ms, 3), "syncs": syncs, "kernel_launches": prof["kernel_launches"],
-            "device_busy_ms": prof["device_busy_ms"], "auction_launches": _build.launches.get(cuda_auction.NAME, 0)
-            - before, **sweeps}
+            "device_busy_ms": prof["device_busy_ms"],
+            "auction_launches": {k: _build.launches.get(k, 0) - n for k, n in before.items()}, **sweeps}
 
 
 def count_syncs(fn) -> int:
@@ -647,23 +663,31 @@ def nms_timing(fn) -> dict:
 def auction_problems(n_per_kind: int = 40, n: int = 32) -> list[tuple[str, tuple]]:
     """Seeded and crafted (cost, row_valid, col_valid) problems at the tracker's
     n x n: ``n_per_kind`` of each kind of ``utils.synthetic.auction_problem``,
-    then equal costs (ties everywhere), two columns near the threshold and two
-    contested well below it (both run out of the sweep budget), one column,
-    every cost at the threshold (every row exits), no valid row, no valid
-    column."""
-    from apse_uav_torch.utils.synthetic import AUCTION_KINDS, auction_problem
+    then ``auction_crafted``'s: equal costs (ties everywhere), two columns
+    near the threshold and two contested well below it (both run out of the
+    sweep budget), one column, every cost at the threshold (every row
+    exits), no valid row, no valid column."""
+    from apse_uav_torch.utils.synthetic import AUCTION_KINDS, auction_crafted, auction_problem
 
     rng = np.random.default_rng(0)
     out = [(kind, auction_problem(kind, rng, n, n)) for kind in AUCTION_KINDS for _ in range(n_per_kind)]
-    yes, no = np.ones(n, bool), np.zeros(n, bool)
-    two = no.copy()
-    two[:2] = True
-    full = lambda v: np.full((n, n), v, np.float32)  # noqa: E731
-    out += [("equal", (full(0.3), yes, yes)), ("two_near_threshold", (full(0.59), yes, two)),
-            ("two_contested", ((0.3 + 1e-6 * rng.uniform(size=(n, n))).astype(np.float32), yes, two)),
-            ("one_column", (full(0.59), yes, np.eye(n, dtype=bool)[0])), ("at_threshold", (full(0.6), yes, yes)),
-            ("no_rows", (full(0.3), no, yes)), ("no_columns", (full(0.3), yes, no))]
-    return out
+    return out + auction_crafted(rng, n, n)
+
+
+def auction_block_problems(n_per_kind: int = 2) -> list[tuple[str, tuple]]:
+    """Problems above the warp kernel's 32 x 32, which the block kernel
+    solves: ``n_per_kind`` of each kind of ``auction_problem`` and the
+    crafted ones at 33 x 32, 32 x 33 and 40 x 70 (two rows a warp, three
+    columns a lane), and one random problem at the kernel's 1,024 x 1,024."""
+    from apse_uav_torch.utils.synthetic import AUCTION_KINDS, auction_crafted, auction_problem
+
+    rng = np.random.default_rng(1)
+    out = []
+    for rows, cols in ((33, 32), (32, 33), (40, 70)):
+        out += [(f"{kind} {rows}x{cols}", auction_problem(kind, rng, rows, cols)) for kind in AUCTION_KINDS
+                for _ in range(n_per_kind)]
+        out += [(f"{name} {rows}x{cols}", p) for name, p in auction_crafted(rng, rows, cols)]
+    return out + [("random 1024x1024", auction_problem("random", rng, 1024, 1024))]
 
 
 def auction_bound(rows: int, cols: int, scanned: int) -> tuple[float, str]:
@@ -678,24 +702,33 @@ def auction_bound(rows: int, cols: int, scanned: int) -> tuple[float, str]:
 
 
 def auction_check(problems, dev, threshold: float = 0.6, budgets=(AUCTION_BUDGET, 1, 2, 3, 5)) -> dict:
-    """The auction kernel against the plain version's CPU run on ``problems``
+    """The auction kernels against the plain version's CPU run on ``problems``
     ((kind, (cost, row_valid, col_valid)) with numpy or CPU tensors) at each
-    sweep budget: col_of_row and the sweep count identical, or SmokeFailure.
-    (The plain version on the card is no reference: its max(dim) may break
-    an exact tie another way.)  Returns the counts, the largest difference
-    in a column index or a sweep count over all solves (``max_abs_err``)
-    and the full budget's sweeps per problem."""
+    sweep budget: col_of_row and the sweep count identical, and each solve
+    launched on the kernel ``cuda_auction.kernel_for`` names for its shape
+    (counted on the card), or SmokeFailure.  (The plain version on the card
+    is no reference: its max(dim) may break an exact tie another way.)
+    Returns the counts, the launches by kernel, the largest difference in a
+    column index or a sweep count over all solves (``max_abs_err``) and the
+    full budget's sweeps per problem."""
     import torch
 
+    from apse_uav_torch import _build
     from apse_uav_torch.dcnn import cuda_auction, hungarian
 
     got, want = [], []
+    before = {k: _build.launches.get(k, 0) for k in cuda_auction.KERNELS}
+    want_launches = dict.fromkeys(cuda_auction.KERNELS, 0)
     for kind, arrays in problems:
         t = [torch.as_tensor(a) for a in arrays]
+        want_launches[cuda_auction.kernel_for(*t[0].shape)] += len(budgets)
         for budget in budgets:
             want.append((kind, budget, hungarian.gated_auction_sweeps(*t, threshold, budget)[:2]))
             got.append(cuda_auction.solve(*(a.to(dev) for a in t), threshold, budget))
     torch.cuda.synchronize()
+    launches = {k: _build.launches.get(k, 0) - n for k, n in before.items()}
+    if dev.type == "cuda" and launches != want_launches:
+        raise SmokeFailure(f"auction launches by kernel {launches}, expected {want_launches}")
     sweeps, exhausted, errs = [], 0, []
     for (kind, budget, (wcol, wsw)), (gcol, gsw) in zip(want, got):
         gcol, gsw, wsw = gcol.cpu(), int(gsw.cpu()[0]), int(wsw[0])
@@ -706,17 +739,20 @@ def auction_check(problems, dev, threshold: float = 0.6, budgets=(AUCTION_BUDGET
         if budget == AUCTION_BUDGET:
             sweeps.append(wsw)
         exhausted += wsw == budget
-    return {"problems": len(problems), "budgets": list(budgets), "solves": len(got), "max_abs_err": max(errs),
-            "solves_at_budget": exhausted, "sweeps_max": max(sweeps), "sweeps_mean": round(float(np.mean(sweeps)), 3)}
+    return {"problems": len(problems), "budgets": list(budgets), "solves": len(got), "launches": launches,
+            "max_abs_err": max(errs), "solves_at_budget": exhausted, "sweeps_max": max(sweeps),
+            "sweeps_mean": round(float(np.mean(sweeps)), 3)}
 
 
 def auction_timing(problems, threshold: float) -> dict:
     """The auction on the card, per solve over ``problems`` ((cost, row_valid,
-    col_valid) on the card, solved one after another): the wrapper's ms (CUDA
-    events), its kernel's device ms (torch.profiler), the plain version's ms
-    on the card, the mean sweeps, bidding rows scanned and bound
-    (``auction_bound`` per problem, its work counted by the plain version's
-    CPU run); one solve under sync-as-error."""
+    col_valid) on the card, solved one after another): the kernel the wrapper
+    chose, the wrapper's ms (CUDA events), its kernel's device ms
+    (torch.profiler), the block kernel's device ms on the same problems (the
+    wrapper's choice above 32 x 32), the plain version's ms on the card, the
+    mean sweeps, bidding rows scanned and bound (``auction_bound`` per
+    problem, its work counted by the plain version's CPU run); one solve
+    under sync-as-error."""
     import torch
 
     from apse_uav_torch.dcnn import cuda_auction, hungarian
@@ -739,12 +775,16 @@ def auction_timing(problems, threshold: float) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     kms = kernel_ms(kern, KERNEL_NAMES["auction"])
+    block_ms = kernel_ms(lambda: [cuda_auction.solve(*p, threshold, kernel=cuda_auction.BLOCK) for p in problems],
+                         (cuda_auction.DEVICE_NAME[cuda_auction.BLOCK],))
     plain_ms = cuda_ms(lambda: [hungarian.gated_auction_sweeps(*p, threshold) for p in problems], 3, 1)
     b_ms = sum(b for b, _ in bounds) / n
-    return {"problems": n, "shape": list(problems[0][0].shape), "sweeps_mean": sum(sweeps) / n,
+    return {"problems": n, "shape": list(problems[0][0].shape),
+            "kernel": cuda_auction.kernel_for(*problems[0][0].shape), "sweeps_mean": sum(sweeps) / n,
             "bidding_rows_scanned_mean": sum(scanned) / n,
             "ms": round(cuda_ms(kern, iters=20, warmup=3) / n, 4),
-            "kernel_ms": None if kms is None else round(kms / n, 4), "plain_ms": round(plain_ms / n, 4),
+            "kernel_ms": None if kms is None else round(kms / n, 4),
+            "block_kernel_ms": None if block_ms is None else round(block_ms / n, 4), "plain_ms": round(plain_ms / n, 4),
             "bound_ms": b_ms, "bound_by": max(bounds)[1]}
 
 
@@ -896,9 +936,9 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
         cli_sweeps = auction_sweeps(sweep_counts)
     finally:
         os.remove(weights_path)
-    for key in (cuda_remap.K3_RGB, cuda_auction.NAME):
-        if counts.get(key, 0) == 0:
-            raise SmokeFailure(f"{key} not launched on the tracker path (counts {counts})")
+    if counts.get(cuda_remap.K3_RGB, 0) == 0:
+        raise SmokeFailure(f"{cuda_remap.K3_RGB} not launched on the tracker path (counts {counts})")
+    check_auction_launches(counts, n, "the tracker path")
     with open(csv_path) as f:
         rows = f.read().splitlines()[2:]
     if len(rows) != n or res["rows"] != n:
@@ -1067,9 +1107,9 @@ def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
                 torch.cuda.synchronize()
                 counts = dict(_build.launches)
             cli_sweeps = auction_sweeps(sweep_counts)
-            for key in (cuda_remap.K3_RGB, cuda_auction.NAME):
-                if counts.get(key, 0) == 0:
-                    raise SmokeFailure(f"tracker_eval {name}: {key} not launched (counts {counts})")
+            if counts.get(cuda_remap.K3_RGB, 0) == 0:
+                raise SmokeFailure(f"tracker_eval {name}: {cuda_remap.K3_RGB} not launched (counts {counts})")
+            check_auction_launches(counts, n, f"tracker_eval {name}")
             path = os.path.join(out_dir, name, "0000.txt")
             os.makedirs(os.path.dirname(path), exist_ok=True)
             with open(path, "w") as f:
@@ -2503,8 +2543,8 @@ def main(argv=None) -> int:
     # -- 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build()
-    ptxas = {name: [ln.strip() for ln in text.splitlines() if "registers" in ln or "bytes smem" in ln]
-             for name, text in logs.items()}
+    ptxas = {name: [ln.strip() for ln in text.splitlines()
+                    if "registers" in ln or "bytes smem" in ln or "spill" in ln] for name, text in logs.items()}
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3), "ptxas": ptxas})
 
     # -- 2. the two-pass slice at full width --------------------------------------
@@ -2798,13 +2838,17 @@ def main(argv=None) -> int:
                            "remap_full_rgb": "F.grid_sample f32, no LAB chain"},
          "card": card})
 
-    # The gated auction (the tracker's solver) at the tracker's 32 x 32: seeded
-    # and crafted problems at every budget against the plain version's CPU run,
-    # one call under sync-as-error, timed on a seeded problem.
+    # The gated auction (the tracker's solver) at the tracker's 32 x 32 on the
+    # warp kernel and above it on the block kernel: seeded and crafted problems
+    # at every budget against the plain version's CPU run, one call under
+    # sync-as-error, timed on a seeded problem.
+    from apse_uav_torch.dcnn import cuda_auction
+
     problems = auction_problems()
     a5 = auction_check(problems, dev)
+    a5_block = auction_check(auction_block_problems(), dev)
     _, (c5, rv5, cv5) = problems[0]
-    log({"phase": "auction", **a5, "timing_random_32x32": auction_timing(
+    log({"phase": "auction", **a5, "block_kernel": a5_block, "timing_random_32x32": auction_timing(
         [(torch.from_numpy(c5).to(dev), torch.from_numpy(rv5).to(dev), torch.from_numpy(cv5).to(dev))], 0.6),
         "card": card})
 
@@ -2820,16 +2864,18 @@ def main(argv=None) -> int:
     # -- 8.-10. tracker_test (float32 and bf16), association, detector_test -------
     t8 = tracker_eval_phase(frames_np, t7, card, dev)
     ckpt = t7["ckpt"]
-    auction_launches = t7["counts"].get("auction", 0)
+    auction_launches = t7["counts"].get(cuda_auction.WARP, 0)
     del t7
     a9 = association_phase(frames_np, t8, card, dev)["auction"]
     del t8
-    # The auction's row: launches on track_uav's path (phase 7), times and bound
-    # per solve on the real costs of phase 9.
+    # The auction's row, the kernel track_uav's path ran (the warp kernel):
+    # launches on that path (phase 7), times and bound per solve on the real
+    # costs of phase 9.
     t9 = a9["timing_real_costs"]
-    kernels.append({"name": "auction", "route": "cuda", "source": "apse_uav_torch/csrc/auction.cu",
+    kernels.append({"name": cuda_auction.WARP, "route": "cuda", "source": "apse_uav_torch/csrc/auction.cu",
                     "replaces": REPLACES["auction"], "launches": auction_launches,
-                    "max_abs_err": float(max(a5["max_abs_err"], a9["real_costs"]["max_abs_err"])), "ms": t9["ms"],
+                    "max_abs_err": float(max(a5["max_abs_err"], a5_block["max_abs_err"],
+                                             a9["real_costs"]["max_abs_err"])), "ms": t9["ms"],
                     "kernel_ms": t9["kernel_ms"], "plain_ms": t9["plain_ms"], "bound_ms": t9["bound_ms"],
                     "bound_by": t9["bound_by"], "library_ms": None})
     detector_phase(frames_np, card, dev)

@@ -2,9 +2,10 @@
 CPU against the JAX package's ``gated_auction_match``.
 
 On a CPU tensor the wrapper runs the plain version, which is the oracle of
-the ``csrc/auction.cu`` kernel (``tests/test_torch_cuda.py`` holds the kernel
-to it on the card).  Problems are made with numpy from fixed seeds and handed
-to both packages; assignments must be identical, budget exits included.  The
+the ``csrc/auction.cu`` kernels (``tests/test_torch_cuda.py`` holds them to
+it on the card); which kernel a shape takes is decided on the CPU, and
+tested here.  Problems are made with numpy from fixed seeds and handed to
+both packages; assignments must be identical, budget exits included.  The
 sweep count is pinned through JAX: it is the number of iterations of the
 reference's ``lax.while_loop``, counted on an un-jitted run.
 """
@@ -22,11 +23,16 @@ from apse_uav_torch.dcnn import cuda_auction, hungarian as thung
 from apse_uav_torch.utils.synthetic import AUCTION_KINDS, auction_problem
 
 KINDS = AUCTION_KINDS + ("wide",)
+# Random problems at the warp kernel's edges (rows x columns).
+EDGES = ("32x32", "32x1", "1x32", "31x32")
 
 
 def problem(kind: str, rng):
     """A seeded 12 x 10 problem of ``kind`` (``utils.synthetic.auction_problem``);
-    ``wide`` is a random 7 x 20 one, more columns than rows."""
+    ``wide`` is a random 7 x 20 one, more columns than rows; an EDGES name a
+    random one of that shape."""
+    if kind in EDGES:
+        return auction_problem("random", rng, *map(int, kind.split("x")))
     return auction_problem("random", rng, 7, 20) if kind == "wide" else auction_problem(kind, rng, 12, 10)
 
 
@@ -35,8 +41,8 @@ def jax_match(cost, rv, cv, thr, max_sweeps=128):
                                                 max_sweeps=max_sweeps))
 
 
-def jax_loop_sweeps(cost, rv, cv, thr, max_sweeps=128) -> int:
-    """The iterations of the ``lax.while_loop`` in JAX's ``gated_auction_match``:
+def jax_loop(cost, rv, cv, thr, max_sweeps=128) -> tuple[np.ndarray, int]:
+    """JAX's ``gated_auction_match`` and the iterations of its ``lax.while_loop``:
     run without jit, the loop runs in Python and each body call is counted."""
     loop, calls = jax.lax.while_loop, []
 
@@ -44,8 +50,8 @@ def jax_loop_sweeps(cost, rv, cv, thr, max_sweeps=128) -> int:
         return loop(cond, lambda s: calls.append(1) or body(s), init)
 
     with mock.patch.object(jax.lax, "while_loop", counting), jax.disable_jit():
-        jax_match(cost, rv, cv, thr, max_sweeps)
-    return len(calls)
+        col_of_row = jax_match(cost, rv, cv, thr, max_sweeps)
+    return col_of_row, len(calls)
 
 
 def wrapper(cost, rv, cv, thr, max_sweeps=128):
@@ -92,21 +98,35 @@ def test_budget_exit_matches_jax(budget):
     assert exhausted >= 2
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + EDGES)
 def test_sweep_count_is_jax_loop_count(kind):
-    """The wrapper's sweep count is exactly the number of iterations of JAX's
-    loop, at the full budget and at a budget of 3; the plain version's
+    """The wrapper's assignment is JAX's and its sweep count exactly the number
+    of iterations of JAX's loop, at the full budget and at a budget of 3,
+    also at the warp kernel's edge shapes (EDGES); the plain version's
     bidding-row total lies between the sweeps and rows x sweeps; last_sweeps
     holds the last call's count."""
-    rng = np.random.default_rng(30 + KINDS.index(kind))
+    rng = np.random.default_rng(30 + (KINDS + EDGES).index(kind))
     cost, rv, cv = problem(kind, rng)
     for budget in (128, 3):
-        got = wrapper(cost, rv, cv, 0.6, budget)[1]
-        assert got == jax_loop_sweeps(cost, rv, cv, 0.6, budget), budget
+        col, got = wrapper(cost, rv, cv, 0.6, budget)
+        want, iterations = jax_loop(cost, rv, cv, 0.6, budget)
+        np.testing.assert_array_equal(col, want, err_msg=f"budget {budget}")
+        assert got == iterations, budget
         assert int(cuda_auction.last_sweeps[0]) == got
         t = [torch.from_numpy(a) for a in (cost, rv, cv)]
         _, sweeps, bids = thung.gated_auction_sweeps(*t, 0.6, budget)
         assert int(sweeps[0]) == got and got <= int(bids[0]) <= int(rv.sum()) * got
+
+
+@pytest.mark.parametrize("shape", [(32, 32), (1, 1), (32, 1), (1, 32), (31, 32), (8, 3), (33, 32), (32, 33),
+                                   (40, 70), (1024, 1024)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_kernel_for(shape):
+    """Every shape up to 32 x 32 (the tracker's) goes to the warp kernel, and a
+    shape above 32 in either dimension to the block kernel."""
+    rows, cols = shape
+    want = cuda_auction.WARP if rows <= 32 and cols <= 32 else cuda_auction.BLOCK
+    assert cuda_auction.kernel_for(rows, cols) == want
+    assert want in cuda_auction.KERNELS and want in cuda_auction.ENTRY and want in cuda_auction.DEVICE_NAME
 
 
 BAD = {
@@ -119,10 +139,15 @@ BAD = {
     "too many rows": (torch.zeros((cuda_auction.MAX_ROWS + 1, 2)), torch.ones(cuda_auction.MAX_ROWS + 1,
                                                                               dtype=torch.bool),
                       torch.ones(2, dtype=torch.bool)),
+    # (cost, row_valid, col_valid, kernel): a kernel that does not take the shape, or none.
+    "warp kernel at 33 x 2": (torch.zeros((33, 2)), torch.ones(33, dtype=torch.bool), torch.ones(2, dtype=torch.bool),
+                              cuda_auction.WARP),
+    "unknown kernel": (torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool), torch.ones(3, dtype=torch.bool), "grid"),
 }
 
 
 @pytest.mark.parametrize("what", list(BAD))
 def test_wrapper_rejects_bad_inputs(what):
+    cost, rv, cv, *kernel = BAD[what]
     with pytest.raises(ValueError):
-        cuda_auction.solve(*BAD[what], 0.6)
+        cuda_auction.solve(cost, rv, cv, 0.6, 128, *kernel)
