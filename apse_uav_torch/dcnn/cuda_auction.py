@@ -65,14 +65,11 @@ def _entry(kernel: str):
 
 
 def solve(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, threshold: float,
-          max_sweeps: int = 128, kernel: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+          max_sweeps: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
     """cost (R, D) float32, row_valid (R,) bool, col_valid (D,) bool, all on
     one device -> (col_of_row (R,) int64 with -1 = unmatched, sweeps (1,)
     int32), the matching of :func:`gated_auction_match` and its sweep count.
-    ``kernel`` (WARP or BLOCK) names the kernel to launch on a CUDA tensor
-    in place of :func:`kernel_for`'s choice (the block kernel takes any
-    shape, the warp kernel up to 32 x 32); a CPU tensor runs the plain
-    version either way."""
+    On a CUDA tensor it launches the kernel :func:`kernel_for` names."""
     global last_sweeps
     if cost.dtype != torch.float32 or cost.dim() != 2:
         raise ValueError(f"cost must be (R, D) float32, got {tuple(cost.shape)} {cost.dtype}")
@@ -84,10 +81,6 @@ def solve(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, 
             raise ValueError(f"{name} is on {t.device}, cost on {cost.device}")
     if not (1 <= n_rows <= MAX_ROWS and 1 <= n_cols <= MAX_COLS):
         raise ValueError(f"cost {n_rows} x {n_cols}: the auction takes 1..{MAX_ROWS} rows and 1..{MAX_COLS} columns")
-    if kernel is None:
-        kernel = kernel_for(n_rows, n_cols)
-    elif kernel not in KERNELS or (kernel == WARP and kernel_for(n_rows, n_cols) != WARP):
-        raise ValueError(f"kernel {kernel!r} does not take a {n_rows} x {n_cols} problem")
     if cost.device.type == "cpu":
         col_of_row, sweeps, _ = gated_auction_sweeps(cost, row_valid, col_valid, threshold, max_sweeps)
     else:
@@ -95,6 +88,7 @@ def solve(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor, 
             raise ValueError("cost, row_valid and col_valid must be contiguous")
         col_of_row = torch.empty(n_rows, dtype=torch.int64, device=cost.device)
         sweeps = torch.empty(1, dtype=torch.int32, device=cost.device)
+        kernel = kernel_for(n_rows, n_cols)
         err = _entry(kernel)(_build.ptr(cost), _build.ptr(row_valid), _build.ptr(col_valid), n_rows, n_cols,
                              float(threshold), int(max_sweeps), _build.ptr(col_of_row), _build.ptr(sweeps),
                              _build.stream_ptr(cost.device))

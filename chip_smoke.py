@@ -52,8 +52,7 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    identical to the plain version's CPU run and each solve on
                    the kernel its shape takes (counted); one call under
                    sync-as-error; timed on a seeded problem with CUDA events
-                   and the profiler beside the block kernel on the same
-                   problem and the plain version on the card.
+                   and the profiler beside the plain version on the card.
 6. gpu-cpu      -- the first 2 frames through the two-pass port on the CPU
                    (plain versions) against the card's run.
 7. tracker      -- the DCNN tracking path: the same 8 frames (HWC, numpy) through
@@ -748,11 +747,9 @@ def auction_timing(problems, threshold: float) -> dict:
     """The auction on the card, per solve over ``problems`` ((cost, row_valid,
     col_valid) on the card, solved one after another): the kernel the wrapper
     chose, the wrapper's ms (CUDA events), its kernel's device ms
-    (torch.profiler), the block kernel's device ms on the same problems (the
-    wrapper's choice above 32 x 32), the plain version's ms on the card, the
-    mean sweeps, bidding rows scanned and bound (``auction_bound`` per
-    problem, its work counted by the plain version's CPU run); one solve
-    under sync-as-error."""
+    (torch.profiler), the plain version's ms on the card, the mean sweeps,
+    bidding rows scanned and bound (``auction_bound`` per problem, its work
+    counted by the plain version's CPU run); one solve under sync-as-error."""
     import torch
 
     from apse_uav_torch.dcnn import cuda_auction, hungarian
@@ -775,16 +772,13 @@ def auction_timing(problems, threshold: float) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     kms = kernel_ms(kern, KERNEL_NAMES["auction"])
-    block_ms = kernel_ms(lambda: [cuda_auction.solve(*p, threshold, kernel=cuda_auction.BLOCK) for p in problems],
-                         (cuda_auction.DEVICE_NAME[cuda_auction.BLOCK],))
     plain_ms = cuda_ms(lambda: [hungarian.gated_auction_sweeps(*p, threshold) for p in problems], 3, 1)
     b_ms = sum(b for b, _ in bounds) / n
     return {"problems": n, "shape": list(problems[0][0].shape),
             "kernel": cuda_auction.kernel_for(*problems[0][0].shape), "sweeps_mean": sum(sweeps) / n,
             "bidding_rows_scanned_mean": sum(scanned) / n,
             "ms": round(cuda_ms(kern, iters=20, warmup=3) / n, 4),
-            "kernel_ms": None if kms is None else round(kms / n, 4),
-            "block_kernel_ms": None if block_ms is None else round(block_ms / n, 4), "plain_ms": round(plain_ms / n, 4),
+            "kernel_ms": None if kms is None else round(kms / n, 4), "plain_ms": round(plain_ms / n, 4),
             "bound_ms": b_ms, "bound_by": max(bounds)[1]}
 
 

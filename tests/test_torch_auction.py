@@ -7,7 +7,7 @@ it on the card); which kernel a shape takes is decided on the CPU, and
 tested here.  Problems are made with numpy from fixed seeds and handed to
 both packages; assignments must be identical, budget exits included.  The
 sweep count is pinned through JAX: it is the number of iterations of the
-reference's ``lax.while_loop``, counted on an un-jitted run.
+reference's ``lax.while_loop``, counted in the loop's carry.
 """
 
 from unittest import mock
@@ -43,15 +43,21 @@ def jax_match(cost, rv, cv, thr, max_sweeps=128):
 
 def jax_loop(cost, rv, cv, thr, max_sweeps=128) -> tuple[np.ndarray, int]:
     """JAX's ``gated_auction_match`` and the iterations of its ``lax.while_loop``:
-    run without jit, the loop runs in Python and each body call is counted."""
-    loop, calls = jax.lax.while_loop, []
+    traced afresh with a loop that carries an iteration counter beside the
+    reference's own state, and returns it."""
+    loop, counts = jax.lax.while_loop, []
 
     def counting(cond, body, init):
-        return loop(cond, lambda s: calls.append(1) or body(s), init)
+        state, n = loop(lambda s: cond(s[0]), lambda s: (body(s[0]), s[1] + 1), (init, jnp.int32(0)))
+        counts.append(n)
+        return state
 
-    with mock.patch.object(jax.lax, "while_loop", counting), jax.disable_jit():
-        col_of_row = jax_match(cost, rv, cv, thr, max_sweeps)
-    return col_of_row, len(calls)
+    def run(c, r, v):
+        with mock.patch.object(jax.lax, "while_loop", counting):
+            return jhung.gated_auction_match.__wrapped__(c, r, v, thr, max_sweeps), counts[0]
+
+    col_of_row, n = jax.jit(run)(jnp.asarray(cost), jnp.asarray(rv), jnp.asarray(cv))
+    return np.asarray(col_of_row), int(n)
 
 
 def wrapper(cost, rv, cv, thr, max_sweeps=128):
@@ -118,15 +124,13 @@ def test_sweep_count_is_jax_loop_count(kind):
         assert int(sweeps[0]) == got and got <= int(bids[0]) <= int(rv.sum()) * got
 
 
-@pytest.mark.parametrize("shape", [(32, 32), (1, 1), (32, 1), (1, 32), (31, 32), (8, 3), (33, 32), (32, 33),
-                                   (40, 70), (1024, 1024)], ids=lambda s: f"{s[0]}x{s[1]}")
-def test_kernel_for(shape):
-    """Every shape up to 32 x 32 (the tracker's) goes to the warp kernel, and a
-    shape above 32 in either dimension to the block kernel."""
-    rows, cols = shape
-    want = cuda_auction.WARP if rows <= 32 and cols <= 32 else cuda_auction.BLOCK
+@pytest.mark.parametrize("rows, cols, want", [(32, 32, "auction_warp"), (1, 1, "auction_warp"),
+                                              (33, 32, "auction_block"), (32, 33, "auction_block"),
+                                              (40, 70, "auction_block"), (1024, 1024, "auction_block")])
+def test_kernel_for(rows, cols, want):
+    """Shapes up to 32 x 32 (the tracker's) go to the warp kernel, shapes above
+    32 in either dimension to the block kernel."""
     assert cuda_auction.kernel_for(rows, cols) == want
-    assert want in cuda_auction.KERNELS and want in cuda_auction.ENTRY and want in cuda_auction.DEVICE_NAME
 
 
 BAD = {
@@ -139,15 +143,10 @@ BAD = {
     "too many rows": (torch.zeros((cuda_auction.MAX_ROWS + 1, 2)), torch.ones(cuda_auction.MAX_ROWS + 1,
                                                                               dtype=torch.bool),
                       torch.ones(2, dtype=torch.bool)),
-    # (cost, row_valid, col_valid, kernel): a kernel that does not take the shape, or none.
-    "warp kernel at 33 x 2": (torch.zeros((33, 2)), torch.ones(33, dtype=torch.bool), torch.ones(2, dtype=torch.bool),
-                              cuda_auction.WARP),
-    "unknown kernel": (torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool), torch.ones(3, dtype=torch.bool), "grid"),
 }
 
 
 @pytest.mark.parametrize("what", list(BAD))
 def test_wrapper_rejects_bad_inputs(what):
-    cost, rv, cv, *kernel = BAD[what]
     with pytest.raises(ValueError):
-        cuda_auction.solve(cost, rv, cv, 0.6, 128, *kernel)
+        cuda_auction.solve(*BAD[what], 0.6)

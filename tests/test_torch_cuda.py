@@ -558,45 +558,42 @@ def test_dp_step_on_one_nccl_rank_matches_plain_step(dev):
         np.testing.assert_allclose(state[k], v, rtol=1e-6, atol=1e-7, err_msg=k)
 
 
-@pytest.mark.parametrize("shape", [(32, 32), (32, 20), (20, 32), (8, 3), (1, 5), (1, 1), (32, 1), (1, 32), (33, 32),
-                                   (32, 33), (40, 70)], ids=lambda s: f"{s[0]}x{s[1]}")
-def test_auction_kernel_bit_identical(dev, shape):
+# The shapes each auction kernel takes, up to 32 x 32 and above.
+AUCTION_SHAPES = {"auction_warp": [(32, 32), (32, 20), (20, 32), (8, 3), (1, 5), (1, 1), (32, 1), (1, 32)],
+                  "auction_block": [(33, 32), (32, 33), (40, 70)]}
+
+
+@pytest.mark.parametrize("shape, kernel", [pytest.param(s, k, id=f"{s[0]}x{s[1]}")
+                                           for k, shapes in AUCTION_SHAPES.items() for s in shapes])
+def test_auction_kernel_bit_identical(dev, shape, kernel):
     """The gated auction kernels against the plain version's CPU run on 8
     seeded problems of every kind and the crafted ones (ties everywhere,
     budget exhaustion, one column, every cost at the threshold, no valid row
     or column), at the tracker's budget of 128 sweeps and at 1, 2, 3 and 5:
     identical col_of_row and sweep counts.  The CPU run is the reference:
     the plain version's max(dim) on the card may break an exact tie another
-    way.  Up to 32 x 32 the wrapper launches the warp kernel (and the block
-    kernel, asked for, agrees); above, the block kernel: 40 x 70 takes two
-    rows a warp and three columns a lane.  Launches are counted per kernel."""
+    way.  Up to 32 x 32 every solve launches the warp kernel; above, the
+    block kernel, which at 40 x 70 takes two rows a warp and three columns a
+    lane."""
     from apse_uav_torch import _build
 
     rows, cols = shape
     rng = np.random.default_rng(rows * 1000 + cols)
     problems = [(kind, auction_problem(kind, rng, rows, cols)) for kind in AUCTION_KINDS for _ in range(8)]
     problems += auction_crafted(rng, rows, cols)
-    chosen = cuda_auction.kernel_for(rows, cols)
-    assert chosen == (cuda_auction.WARP if rows <= 32 and cols <= 32 else cuda_auction.BLOCK)
-    kernels = (None, cuda_auction.BLOCK) if chosen == cuda_auction.WARP else (None,)
     _build.reset_counts()
     exhausted = 0
     for kind, arrays in problems:
         t = [torch.from_numpy(a) for a in arrays]
         for budget in (128, 1, 2, 3, 5):
             want, want_sweeps, _ = hungarian.gated_auction_sweeps(*t, 0.6, budget)
-            for kernel in kernels:
-                got, sweeps = cuda_auction.solve(*(a.to(dev) for a in t), 0.6, budget, kernel=kernel)
-                torch.cuda.synchronize()
-                assert torch.equal(got.cpu(), want), (kind, budget, kernel)
-                assert int(sweeps.cpu()[0]) == int(want_sweeps[0]), (kind, budget, kernel)
+            got, sweeps = cuda_auction.solve(*(a.to(dev) for a in t), 0.6, budget)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (kind, budget)
+            assert int(sweeps.cpu()[0]) == int(want_sweeps[0]), (kind, budget)
             exhausted += budget < 128 and int(want_sweeps[0]) == budget
     assert exhausted > 0
-    solves = len(problems) * 5
-    want_counts = {cuda_auction.WARP: 0, cuda_auction.BLOCK: 0}
-    for kernel in kernels:
-        want_counts[kernel or chosen] += solves
-    assert {k: _build.launches.get(k, 0) for k in cuda_auction.KERNELS} == want_counts
+    assert _build.launches == {kernel: len(problems) * 5}
 
 
 @pytest.mark.parametrize("shape", [(32, 32), (40, 70)], ids=["warp_32x32", "block_40x70"])
@@ -621,8 +618,7 @@ def test_auction_kernel_does_not_sync(dev, shape):
 
 def test_auction_input_checks(dev):
     """The wrapper refuses what the kernels do not take on the card:
-    non-contiguous costs, inputs on two devices, more than 1,024 rows, the
-    warp kernel asked for above 32 rows."""
+    non-contiguous costs, inputs on two devices, more than 1,024 rows."""
     cost = torch.rand((8, 6), device=dev)
     rv, cv = torch.ones(8, dtype=torch.bool, device=dev), torch.ones(6, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -632,9 +628,6 @@ def test_auction_input_checks(dev):
     big = torch.rand((cuda_auction.MAX_ROWS + 1, 6), device=dev)
     with pytest.raises(ValueError):
         cuda_auction.solve(big, torch.ones(big.shape[0], dtype=torch.bool, device=dev), cv, 0.6)
-    tall = torch.rand((33, 6), device=dev)
-    with pytest.raises(ValueError, match="does not take"):
-        cuda_auction.solve(tall, torch.ones(33, dtype=torch.bool, device=dev), cv, 0.6, kernel=cuda_auction.WARP)
 
 
 def association_sequence(frames: int = 6, slots: int = 32, objects: int = 40, dim: int = 128, seed: int = 0):
