@@ -11,9 +11,9 @@ loaded with ``ctypes`` -- no PyTorch headers, so a build takes seconds.
 plain PyTorch versions (one elementwise op per rounding), which is what the
 bit-exactness contracts of the kernels rely on.
 
-This module also keeps the launch counts: every wrapper calls
-:func:`count` right after a launch succeeded, so a run can show that its main
-path went through the kernels.
+Every wrapper calls :func:`count` right after a launch succeeded; the
+counts are ``launch.<kernel>`` in :data:`apse_uav_torch.utils.profiling.counters`,
+so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import shutil
 import subprocess
 import threading
 
+from apse_uav_torch.utils import profiling
+
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = (
@@ -35,16 +37,10 @@ SOURCES = ("auction", "labeling", "pool", "proposals", "remap")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-# Launch counts by kernel name (see count / reset_counts).
-launches: dict[str, int] = {}
 
 
 def count(name: str) -> None:
-    launches[name] = launches.get(name, 0) + 1
-
-
-def reset_counts() -> None:
-    launches.clear()
+    profiling.count("launch." + name)
 
 
 def _nvcc() -> str:

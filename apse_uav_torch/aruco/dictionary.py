@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from apse_uav_torch.utils import profiling
+
 # fmt: off
 DICT_4X4_50 = np.array([
     46386, 3994, 13101, 39238, 21662, 31181, 40494, 50418, 65242, 53078,
@@ -62,7 +64,8 @@ def match_dictionary(bits: torch.Tensor, error_correction_rate: float = 2.0):
     (id, rotation) in table order, like ``jnp.argmin``.
     """
     budget = int(MAX_CORRECTION_BITS * error_correction_rate)
-    table = torch.as_tensor(_ALL_ROTATIONS, device=bits.device).reshape(200)
+    with profiling.sync("dictionary_table"):  # a copy from the host
+        table = torch.as_tensor(_ALL_ROTATIONS, device=bits.device).reshape(200)
     dist = _popcount16(torch.bitwise_xor(bits.to(torch.int64)[..., None], table))  # (..., 200)
     best_dist, best = torch.min(dist, dim=-1)
     # torch.min's index on ties is not promised to be the first: take it explicitly.

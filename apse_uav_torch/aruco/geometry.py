@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from apse_uav_torch.core import camera, rotation
+from apse_uav_torch.utils import profiling
 
 MARKER_LENGTH_ORG = 0.55
 MARKER_DIV = 1.2
@@ -33,7 +34,9 @@ LED_POINTS = (
 
 
 def const(values, device) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=device)
+    """``values`` as a float32 tensor on ``device``: a copy from the host, one sync on the card."""
+    with profiling.sync("const"):
+        return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def marker_center_and_size(corners: torch.Tensor):

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from apse_uav_torch.utils import profiling
+
 
 def select_tiles(centers: torch.Tensor, valid: torch.Tensor, *, h: int, w: int, th: int, tw: int, groups: tuple,
                  t_sel: int, per_scale_k: int):
@@ -37,7 +39,8 @@ def select_tiles_batched(centers: torch.Tensor, valid: torch.Tensor, *, h: int, 
     psize = torch.zeros(k, dtype=torch.int64)
     for a, b, ps in groups:
         psize[a:b] = ps
-    psize = psize.to(dev)
+    with profiling.sync("tile_sizes"):  # a copy from the host
+        psize = psize.to(dev)
     prio = torch.arange(k, device=dev) % per_scale_k
 
     cy = torch.round(centers[..., 0]).to(torch.int64)

@@ -6,14 +6,18 @@ Counterpart of the JAX reference's ``aruco/pipeline.py``:
   4x4 pool of the source (K5), kernel K3 on the pooled camera, proposals
   (K2), candidate-driven tile selection, K4 on the selected full-resolution
   tiles, the candidate stage (with K1).  Single-pass (``two_pass=False``):
-  K3 over the whole full-resolution frame, then :class:`ArucoDetector`
-  (pool, K2, the candidate stage with K1).  Then per-id slots and
+  K3 over the whole full-resolution frame, then the detector's pool, K2
+  and the candidate stage with K1.  Then per-id slots and
   unit-length planar pose for both ambiguity basins.  On the CPU the plain
   versions run and the full-resolution gray covers the whole frame, as the
   reference's CPU path does.
 * **scan**: the reference's per-frame state machine (DIFF_MAX gating,
   marker-size rings, altitude fallback, LEDs, distances) as a Python loop
   over frames with the same carry semantics.
+
+Each stage is a span of ``utils/profiling.py`` (``aruco.process`` >
+``aruco.front`` > ``aruco.pool``, ..., ``aruco.pose``; ``aruco.scan`` >
+``aruco.step``).
 
 Vehicle slots are fixed: slot v in 0..3 is marker id v + 1; the host car is
 id 4 (slot 3).
@@ -32,6 +36,7 @@ from apse_uav_torch.aruco.pose import estimate_pose_single_markers_two
 from apse_uav_torch.core import camera, rotation
 from apse_uav_torch.device import resolve_device
 from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
+from apse_uav_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,7 +141,7 @@ class ArucoPipeline:
         self.dist = camera.pad_dist_coeffs(dist, device=self.device)
         self.size_wh = tuple(size_wh)
         self.params = detector_params or DetectorParams()
-        self.detector = det.ArucoDetector(self.params, device=self.device)
+        self.calls = 0
         w, h = self.size_wh
         self._sel_th, self._sel_tw = remap.pick_tiles(w, h)
         # The gray colour table of the remap kernels (K3, K4), built on the card only.
@@ -160,40 +165,57 @@ class ArucoPipeline:
             raise ValueError(f"frames must be (T, 3, {h}, {w}) uint8, got {tuple(frames.shape)} {frames.dtype}")
         if frames.device != self.device:
             raise ValueError(f"frames are on {frames.device}, the pipeline on {self.device}")
-        frames = frames.contiguous()
-        if not self.cfg.two_pass:
-            gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw, table=self.table)  # K3
-            corners, ids = self.detector.detect(gray)  # K2, K1 inside
+        with profiling.span("aruco.front"):
+            frames = frames.contiguous()
+            p = self.params
+            st = p.proposal_stride
+            if not self.cfg.two_pass:
+                with profiling.span("aruco.remap_full"):
+                    gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw,
+                                                 table=self.table)  # K3
+                with profiling.span("aruco.pool"):
+                    pool = det.pool_gray(gray, st)
+                with profiling.span("aruco.proposals"):
+                    props = det.proposals(pool, h, w, p)  # K2
+                with profiling.span("aruco.candidates"):
+                    corners, ids = det.candidates(gray, *props, p)  # K1 inside
+                return self._front_from_detections(gray, corners, ids)
+            with profiling.span("aruco.pool"):
+                pooled_src = cuda_pool.pool_source(frames, st, self._pooled_hw)  # K5
+            with profiling.span("aruco.remap_pooled"):
+                pooled_gray = cuda_remap.remap_gray(pooled_src, self.map_pooled, *self._pooled_tiles,
+                                                    table=self.table)  # K3
+            with profiling.span("aruco.proposals"):
+                pool = pooled_gray[:, : h // st, : w // st].to(torch.float32)
+                centers, sizes, scores, valid = det.proposals(pool, h, w, p)  # K2
+            with profiling.span("aruco.select_tiles"):
+                sel, covered = patch_select.select_tiles_batched(
+                    centers, valid, h=h, w=w, th=self._sel_th, tw=self._sel_tw, groups=self._groups,
+                    t_sel=self.cfg.sel_tile_budget, per_scale_k=p.per_scale_k,
+                )
+            with profiling.span("aruco.remap_selected"):
+                if self.device.type == "cuda":
+                    gray = cuda_remap.remap_gray_selected(frames, self.map_full, sel, self._sel_th, self._sel_tw,
+                                                          table=self.table)  # K4
+                else:
+                    gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw)
+            with profiling.span("aruco.candidates"):
+                corners, ids = det.candidates(gray, centers, sizes, scores, valid, p, covered)  # K1 inside
             return self._front_from_detections(gray, corners, ids)
-        p = self.params
-        st = p.proposal_stride
-        pooled_src = cuda_pool.pool_source(frames, st, self._pooled_hw)  # K5
-        pooled_gray = cuda_remap.remap_gray(pooled_src, self.map_pooled, *self._pooled_tiles, table=self.table)  # K3
-        pool = pooled_gray[:, : h // st, : w // st].to(torch.float32)
-        centers, sizes, scores, valid = det.proposals(pool, h, w, p)  # K2
-        sel, covered = patch_select.select_tiles_batched(
-            centers, valid, h=h, w=w, th=self._sel_th, tw=self._sel_tw, groups=self._groups,
-            t_sel=self.cfg.sel_tile_budget, per_scale_k=p.per_scale_k,
-        )
-        if self.device.type == "cuda":
-            gray = cuda_remap.remap_gray_selected(frames, self.map_full, sel, self._sel_th, self._sel_tw,
-                                                  table=self.table)  # K4
-        else:
-            gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw)
-        corners, ids = det.candidates(gray, centers, sizes, scores, valid, p, covered)  # K1 inside
-        return self._front_from_detections(gray, corners, ids)
 
     def _front_from_detections(self, gray, corners, ids):
-        present, slot_corners = _slot_by_id(ids, corners)
-        rvecs, utvecs, rvecs2, utvecs2, perr, perr2, pswap = estimate_pose_single_markers_two(
-            slot_corners, 1.0, self.mtx, self.dist, tilt=self.tilt
-        )
-        cx, cy, msp = geo.marker_center_and_size(slot_corners)
+        with profiling.span("aruco.pose"):
+            present, slot_corners = _slot_by_id(ids, corners)
+            rvecs, utvecs, rvecs2, utvecs2, perr, perr2, pswap = estimate_pose_single_markers_two(
+                slot_corners, 1.0, self.mtx, self.dist, tilt=self.tilt
+            )
+            cx, cy, msp = geo.marker_center_and_size(slot_corners)
+            msp = torch.clamp(msp, min=1e-6)
         return {
             "present": present, "corners": slot_corners,
             "rvec": rvecs, "utvec": utvecs, "rvec2": rvecs2, "utvec2": utvecs2,
             "perr": perr, "perr2": perr2, "pswap": pswap,
-            "cx": cx, "cy": cy, "msp": torch.clamp(msp, min=1e-6), "gray": gray,
+            "cx": cx, "cy": cy, "msp": msp, "gray": gray,
         }
 
     # -- temporal scan -------------------------------------------------------
@@ -222,9 +244,11 @@ class ArucoPipeline:
         # Host branch: altitude (with the reference's fallback), marker length.
         altitude_raw = tvec[3, 2]
         any_veh = present[:3].any()
-        fb_idx = torch.where(any_veh, 2 - torch.argmax(torch.flip(present[:3], (0,)).to(torch.int32)),
-                             torch.tensor(3, device=dev))
-        alt_fb = tvec[fb_idx, 2]
+        # A copy from the host and an index by a device scalar: two syncs on the card.
+        with profiling.sync("altitude_fallback", 2):
+            fb_idx = torch.where(any_veh, 2 - torch.argmax(torch.flip(present[:3], (0,)).to(torch.int32)),
+                                 torch.tensor(3, device=dev))
+            alt_fb = tvec[fb_idx, 2]
         use_fb = ~host & (any_veh | present[3])
         altitude_eff = torch.where(host, altitude_raw,
                                    torch.where(use_fb, alt_fb, carry["altitude_real"] * geo.MARKER_DIV))
@@ -325,19 +349,26 @@ class ArucoPipeline:
         Returns (carry, outputs stacked over T).
         """
         t = front["present"].shape[0]
-        firsts = [bool(v) for v in (first_frame.tolist() if torch.is_tensor(first_frame) else first_frame)]
-        if centroid_rows is None:
-            centroid_rows = torch.zeros((t, 17), dtype=torch.int32, device=self.device)
-        outs = []
-        for i in range(t):
-            f = {k: v[i] for k, v in front.items()}
-            carry, out = self._step(carry, f, firsts[i], centroid_rows[i])
-            outs.append(out)
-        return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        with profiling.span("aruco.scan"):
+            if torch.is_tensor(first_frame):
+                with profiling.sync("first_frame"):
+                    first_frame = first_frame.tolist()
+            firsts = [bool(v) for v in first_frame]
+            if centroid_rows is None:
+                centroid_rows = torch.zeros((t, 17), dtype=torch.int32, device=self.device)
+            outs = []
+            for i in range(t):
+                with profiling.span("aruco.step"):
+                    f = {k: v[i] for k, v in front.items()}
+                    carry, out = self._step(carry, f, firsts[i], centroid_rows[i])
+                outs.append(out)
+            return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def process(self, frames: torch.Tensor, carry: dict, first: bool = False,
                 centroid_rows: torch.Tensor | None = None):
         """front + scan for a batch of frames."""
-        f = self.front(frames)
-        firsts = [bool(first)] + [False] * (frames.shape[0] - 1)
-        return self.scan(carry, f, firsts, centroid_rows)
+        self.calls += 1
+        with profiling.span("aruco.process", batch=self.calls):
+            f = self.front(frames)
+            firsts = [bool(first)] + [False] * (frames.shape[0] - 1)
+            return self.scan(carry, f, firsts, centroid_rows)

@@ -18,13 +18,15 @@ from __future__ import annotations
 import torch
 
 from apse_uav_torch.core import camera, rotation
+from apse_uav_torch.utils import profiling
 
 
 def marker_object_points(marker_length: float, device=None) -> torch.Tensor:
     """OpenCV estimatePoseSingleMarkers object points (y up), (4, 3)."""
     half = marker_length / 2.0
-    return torch.tensor([[-half, half, 0.0], [half, half, 0.0], [half, -half, 0.0], [-half, -half, 0.0]],
-                        dtype=torch.float32, device=device)
+    with profiling.sync("pose_points"):  # a copy from the host
+        return torch.tensor([[-half, half, 0.0], [half, half, 0.0], [half, -half, 0.0], [-half, -half, 0.0]],
+                            dtype=torch.float32, device=device)
 
 
 def _unit_to_quad(q: torch.Tensor) -> torch.Tensor:
@@ -49,7 +51,8 @@ def _unit_to_quad(q: torch.Tensor) -> torch.Tensor:
 
 def _homography_dlt(src_xy: torch.Tensor, dst_xy: torch.Tensor) -> torch.Tensor:
     """Exact 4-point homography src -> dst via the projective square map."""
-    return _unit_to_quad(dst_xy) @ torch.linalg.inv(_unit_to_quad(src_xy))
+    with profiling.sync("pose_inverse"):  # inv reads its error flag back
+        return _unit_to_quad(dst_xy) @ torch.linalg.inv(_unit_to_quad(src_xy))
 
 
 def _init_pose_planar(obj_xy: torch.Tensor, xy_norm: torch.Tensor):
@@ -67,7 +70,8 @@ def _init_pose_planar(obj_xy: torch.Tensor, xy_norm: torch.Tensor):
     r_mat = torch.stack([q1, q2, torch.linalg.cross(q1, q2, dim=-1)], dim=-1)
     flip = t[..., 2] < 0
     t = torch.where(flip[..., None], -t, t)
-    mirror = torch.tensor([-1.0, -1.0, 1.0], dtype=r_mat.dtype, device=r_mat.device)
+    with profiling.sync("pose_mirror"):  # a copy from the host
+        mirror = torch.tensor([-1.0, -1.0, 1.0], dtype=r_mat.dtype, device=r_mat.device)
     r_mat = torch.where(flip[..., None, None], r_mat * mirror, r_mat)
     return rotation.matrix_to_rodrigues(r_mat), t
 

@@ -6,7 +6,8 @@ CSV, both result schemas, annotated images with ``--save_images``, the live
 annotated view with ``--display``: the reference's imshow loop, ``q``
 quits), plus ``--device cuda|cpu``.  ``cuda`` raises when no card is visible; it never
 falls back to the CPU.  TF32 is switched off for matmuls and cuDNN so that
-the geometry stays in full float32.
+the geometry stays in full float32.  ``--profile DIR`` writes a Chrome trace
+of the run, the program's spans beside the kernels, to ``DIR/trace.json``.
 
 Usage:
     python -m apse_uav_torch.cli.aruco_detect \
@@ -18,6 +19,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -53,6 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="live annotated view (reference aruco_detect.py:787-800 imshow loop; 'q' quits)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default; raises when no card is visible) or cpu (plain PyTorch path)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the run (the program's spans beside the kernels) into DIR/trace.json")
     return p
 
 
@@ -173,7 +177,7 @@ def main(argv=None) -> int:
     from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
     from apse_uav_torch.core import camera
     from apse_uav_torch.device import resolve_device
-    from apse_uav_torch.utils import csv_io
+    from apse_uav_torch.utils import csv_io, profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -195,14 +199,19 @@ def main(argv=None) -> int:
 
     def run(ks, frames):
         nonlocal carry, first, n_frames
-        batch = torch.from_numpy(np.stack(frames).transpose(0, 3, 1, 2).copy()).to(device)
+        batch = torch.from_numpy(np.stack(frames).transpose(0, 3, 1, 2).copy())
+        with profiling.sync("upload"):
+            batch = batch.to(device)
         crows = None
         if centroid_data is not None:
             idx = np.clip(np.asarray(ks) - 1, 0, len(centroid_data) - 1)
-            crows = torch.as_tensor(centroid_data[idx], dtype=torch.int32, device=device)
+            with profiling.sync("upload"):
+                crows = torch.as_tensor(centroid_data[idx], dtype=torch.int32, device=device)
         carry, out = pipe.process(batch, carry, first=first, centroid_rows=crows)
         first = False
-        out = {key: val.cpu().numpy() for key, val in out.items() if key != "gray"}
+        out = {key: val for key, val in out.items() if key != "gray"}
+        with profiling.sync("to_host", len(out)):
+            out = {key: val.cpu().numpy() for key, val in out.items()}
         for i, k in enumerate(ks):
             row = {key: val[i] for key, val in out.items()}
             if writer is not None:
@@ -213,21 +222,23 @@ def main(argv=None) -> int:
                 display.show(frames[i], row)
         n_frames += len(ks)
 
+    traced = profiling.trace(args.profile) if args.profile else contextlib.nullcontext()
     try:
-        ks, frames = [], []
-        for k, frame in _frame_reader(args):
-            if frame.shape[:2] != (args.height, args.width):
-                raise SystemExit(f"frame {k} has shape {frame.shape}, expected {(args.height, args.width)}")
-            ks.append(k)
-            frames.append(frame)
-            if len(ks) == args.batch:
-                run(ks, frames)
-                ks, frames = [], []
-                if display is not None and display.quit:
-                    break
-        else:
-            if ks:
-                run(ks, frames)
+        with traced:
+            ks, frames = [], []
+            for k, frame in _frame_reader(args):
+                if frame.shape[:2] != (args.height, args.width):
+                    raise SystemExit(f"frame {k} has shape {frame.shape}, expected {(args.height, args.width)}")
+                ks.append(k)
+                frames.append(frame)
+                if len(ks) == args.batch:
+                    run(ks, frames)
+                    ks, frames = [], []
+                    if display is not None and display.quit:
+                        break
+            else:
+                if ks:
+                    run(ks, frames)
     finally:
         if writer is not None:
             writer.close()

@@ -16,6 +16,8 @@ are the re-ID head's.  Without it, or if the path does not exist (a warning
 then says so), the re-ID head takes the reference's default: its flax
 initialisation under ``PRNGKey(1)``, reproduced without JAX
 (``models.association.head_weights``), so the ids match the reference's.
+``--profile DIR`` writes a Chrome trace of the run, the program's spans
+beside the kernels, to ``DIR/trace.json``.
 
 Usage:
     python -m apse_uav_torch.cli.track_uav --video seq.mp4 \
@@ -26,6 +28,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import os
@@ -56,6 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preprocess", default=None, help="cam_params.json: undistort+gamma frames first")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cuda (default; raises when no card is visible) or cpu (plain PyTorch path)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the run (the program's spans beside the kernels) into DIR/trace.json")
     return p
 
 
@@ -166,12 +171,20 @@ def track_frames(tracker, pre, frames, batch: int):
     every frame, in order."""
     import torch
 
+    from apse_uav_torch.utils import profiling
+
     def dispatch(chunk):
         """Enqueue preprocess + detect + associate for a batch."""
-        x = torch.from_numpy(np.stack([f for _, f in chunk])).to(tracker.device)
+        batch = getattr(tracker, "dispatched", 0) + 1  # the number the tracker gives this dispatch
+        with profiling.span("track.upload", batch):
+            x = torch.from_numpy(np.stack([f for _, f in chunk]))
+            # A pageable copy: the host waits for the work queued before it.
+            with profiling.sync("upload"):
+                x = x.to(tracker.device)
         if pre is not None:
             # Stays on the device: the predictor reads it there.
-            x, _ = pre(x, with_gray=False)
+            with profiling.span("track.preprocess", batch):
+                x, _ = pre(x, with_gray=False)
         return tracker.process_frames_async(x), chunk
 
     def consume(pending):
@@ -200,9 +213,11 @@ def track_frames(tracker, pre, frames, batch: int):
 def track(args, frames, on_frame=None) -> dict:
     """The CLI's loop over ``frames``, an iterable of (idx, (H, W, 3) u8 BGR
     numpy frame), through :func:`track_frames`, the host writing CSV rows
-    and images.  ``on_frame(idx, recent)``, if given, receives each frame's
+    and images; under ``profiling.trace(args.profile)`` when ``--profile``
+    is given.  ``on_frame(idx, recent)``, if given, receives each frame's
     snapshot (numpy).  Writes ``args.log_file``; returns {"frames", "rows",
     "max_obj_id", "seconds"}."""
+    from apse_uav_torch.utils import profiling
     from apse_uav_torch.utils.mask_geometry import dcnn_log_line, write_dcnn_log
 
     frames = iter(frames)
@@ -222,21 +237,23 @@ def track(args, frames, on_frame=None) -> dict:
     log_lines: list[str] = []
     max_obj_id = 0
     n_done = 0
+    traced = profiling.trace(args.profile) if args.profile else contextlib.nullcontext()
     t_start = time.perf_counter()
-    for idx, frame, recent in track_frames(tracker, pre, itertools.chain([first], frames), args.batch):
-        if args.log_file:
-            line, highest = dcnn_log_line(recent, args.host_id, idx, orig_hw)
-            log_lines.append(line)
-            max_obj_id = max(max_obj_id, highest)
-        if on_frame is not None:
-            on_frame(idx, recent)
-        if vis is not None:
-            import cv2
+    with traced:
+        for idx, frame, recent in track_frames(tracker, pre, itertools.chain([first], frames), args.batch):
+            if args.log_file:
+                line, highest = dcnn_log_line(recent, args.host_id, idx, orig_hw)
+                log_lines.append(line)
+                max_obj_id = max(max_obj_id, highest)
+            if on_frame is not None:
+                on_frame(idx, recent)
+            if vis is not None:
+                import cv2
 
-            cv2.imwrite(os.path.join(args.write_images, f"image_{idx:04d}.png"), vis.draw(frame, recent))
-        n_done += 1
-        if n_done % args.batch == 0:
-            print(f"frame {idx}: {n_done / (time.perf_counter() - t_start):.2f} fps", end="\r")
+                cv2.imwrite(os.path.join(args.write_images, f"image_{idx:04d}.png"), vis.draw(frame, recent))
+            n_done += 1
+            if n_done % args.batch == 0:
+                print(f"frame {idx}: {n_done / (time.perf_counter() - t_start):.2f} fps", end="\r")
     print()
     if args.log_file:
         write_dcnn_log(args.log_file, log_lines, args.host_id, max_obj_id)

@@ -31,6 +31,7 @@ from apse_uav_torch.dcnn.models.association import AssociationHead
 from apse_uav_torch.dcnn.models.c4 import build_model
 from apse_uav_torch.dcnn.weights import load_detectron2
 from apse_uav_torch.device import resolve_device, synchronize
+from apse_uav_torch.utils import profiling
 
 
 @contextlib.contextmanager
@@ -145,10 +146,17 @@ class TrackPredictor:
     @torch.no_grad()
     def __call__(self, frames_u8):
         """frames (B, H, W, 3) u8 in the configured channel order -> (detections, backbone maps)."""
-        x = self.resize(frames_u8)
+        with profiling.span("track.resize"):
+            x = self.resize(frames_u8)
+        hw = tuple(x.shape[1:3])
         with full_fp32():
-            dets, feats = self.model.inference(x)
-        return self.postprocess(dets), feats
+            with profiling.span("track.features"):
+                feats = self.model.features(x)
+            with profiling.span("track.proposals"):
+                boxes, _, valid = self.model.proposals(feats, hw)
+            with profiling.span("track.roi_heads"):
+                dets = self.postprocess(self.model.detect(feats, boxes, valid, hw))
+        return dets, feats
 
 
 class SelectivePredictor:
@@ -189,6 +197,13 @@ class SelectivePredictor:
         return {**dets, "boxes": dets["boxes"] * self._scale}
 
 
+class Pending(tuple):
+    """A dispatched batch: the pair (detections, snapshots) on the device, and
+    ``batch``, the number of its dispatch (its spans' batch)."""
+
+    batch: int | None = None
+
+
 class RcnnTracker:
     """Detect -> associate -> track (the reference's RcnnTracker).
 
@@ -211,6 +226,7 @@ class RcnnTracker:
         self.head = AssociationHead(model_cfg.fpn_channels * tracker_cfg.roi_size**2, tracker_cfg.embedding_dim)
         self.head.load_state_dict({k: torch.as_tensor(np.array(v)) for k, v in assoc_weights.items()})
         self.head = self.head.eval().requires_grad_(False).to(self.device)
+        self.dispatched = 0
         self.reset()
 
     def reset(self) -> None:
@@ -220,27 +236,34 @@ class RcnnTracker:
     @torch.no_grad()
     def embed(self, dets: dict, feats: dict):
         """The stateless half over the batch: top-k cap + re-ID embeddings."""
-        with full_fp32():
+        with profiling.span("track.embed"), full_fp32():
             return tracker_mod.prepare_frame(dets, feats["p2"], self.head, self.cfg, self.orig_hw)
 
     @torch.no_grad()
     def associate(self, dets: dict, emb: torch.Tensor) -> dict:
         """The state-carrying half, frame by frame; returns the stacked snapshots."""
-        self.state, recents = tracker_mod.associate_frames(self.state, dets, emb, self.cfg, self.orig_hw)
+        with profiling.span("track.associate"):
+            self.state, recents = tracker_mod.associate_frames(self.state, dets, emb, self.cfg, self.orig_hw)
         return recents
 
-    def process_frames_async(self, frames_u8):
+    def process_frames_async(self, frames_u8) -> Pending:
         """Dispatch detect + embed + associate for a batch; returns a pending
         handle for :meth:`materialize`."""
-        dets, feats = self.predictor(frames_u8)
-        self.frame_count += int(frames_u8.shape[0])
-        det_cap, emb = self.embed(dets, feats)
-        return dets, self.associate(det_cap, emb)
+        self.dispatched += 1
+        with profiling.span("track.dispatch", batch=self.dispatched):
+            dets, feats = self.predictor(frames_u8)
+            self.frame_count += int(frames_u8.shape[0])
+            det_cap, emb = self.embed(dets, feats)
+            pending = Pending((dets, self.associate(det_cap, emb)))
+        pending.batch = self.dispatched
+        return pending
 
     def materialize(self, pending) -> dict[str, np.ndarray]:
-        """Copy a pending batch's snapshots (T, ...) to the host."""
+        """Copy a pending batch's snapshots (T, ...) to the host, one sync a copy."""
         dets, recents = pending
-        out = {k: v.cpu().numpy() for k, v in recents.items()}
+        with profiling.span("track.materialize", batch=getattr(pending, "batch", None)):
+            with profiling.sync("materialize", len(recents)):
+                out = {k: v.cpu().numpy() for k, v in recents.items()}
         if self.display_info:
             self._debug_print(dets, out)
         return out

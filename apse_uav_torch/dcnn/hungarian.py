@@ -100,7 +100,7 @@ def gated_auction_sweeps(cost: torch.Tensor, row_valid: torch.Tensor, col_valid:
              torch.zeros(n_cols, dtype=torch.float32, device=dev), torch.zeros(1, dtype=torch.int32, device=dev),
              torch.zeros(1, dtype=torch.int32, device=dev))
     col_of_row, _, _, sweeps, scanned = run_until(sweep, state, lambda s: ~(s[0] == _BIDDING).any(), max_sweeps,
-                                                  CHECK_EVERY)
+                                                  CHECK_EVERY, site="auction_converge")
     return torch.where(col_of_row == _BIDDING, torch.full_like(col_of_row, _NULL), col_of_row), sweeps, scanned
 
 
@@ -168,8 +168,9 @@ def linear_sum_assignment(cost: torch.Tensor, maximize: bool = False) -> tuple[t
                  torch.full((n + 1,), n, dtype=torch.int64, device=dev), torch.zeros(n + 1, dtype=torch.bool,
                                                                                       device=dev),
                  torch.full((), n, dtype=torch.int64, device=dev))
-        u, v, p, _, way, _, j0 = run_until(dijkstra, state, lambda s: s[2][s[6]] == -1, n + 1, CHECK_EVERY)
-        p, _, _ = run_until(augment, (p, j0, way), lambda s: s[1] == n, n + 1, CHECK_EVERY)
+        u, v, p, _, way, _, j0 = run_until(dijkstra, state, lambda s: s[2][s[6]] == -1, n + 1, CHECK_EVERY,
+                                           site="jv_converge")
+        p, _, _ = run_until(augment, (p, j0, way), lambda s: s[1] == n, n + 1, CHECK_EVERY, site="jv_converge")
     col_of_row = torch.empty(n, dtype=torch.int64, device=dev)
     col_of_row[p[:n]] = torch.arange(n, device=dev)
     return torch.arange(n, device=dev), col_of_row
@@ -218,7 +219,8 @@ def auction_assignment(cost: torch.Tensor, maximize: bool = False,
     for frac in (1.0 / 4.0, 1.0 / 32.0, 1.0 / 256.0, 1.0 / 4096.0):
         _, prices, _, budget = state
         state = (torch.full((n,), -1, dtype=torch.int64, device=dev), prices, spread * frac, budget)
-        state = run_until(sweep, state, lambda s: ~(s[0] < 0).any() | (s[3] <= 0), max_sweeps, CHECK_EVERY)
+        state = run_until(sweep, state, lambda s: ~(s[0] < 0).any() | (s[3] <= 0), max_sweeps, CHECK_EVERY,
+                          site="auction_converge")
     col_of_row = state[0]
     unassigned = col_of_row < 0
     taken = set_at(torch.zeros(n, dtype=torch.bool, device=dev), torch.where(unassigned, n, col_of_row),

@@ -6,8 +6,9 @@ test is a device-to-host copy, which stalls the host until the device has
 caught up.  Both loops have a step that maps a converged state to itself, so
 running a few steps past convergence changes nothing: :func:`run_until`
 tests only every ``every`` steps and returns the same bits as a loop that
-tests after every step.  ``checks`` counts the tests (each one host sync on
-the card).
+tests after every step.  Each test is a host sync on the card, counted as
+``sync.<site>`` in :data:`apse_uav_torch.utils.profiling.counters` and
+recorded as that span.
 """
 
 from __future__ import annotations
@@ -16,20 +17,16 @@ from typing import Callable, TypeVar
 
 import torch
 
+from apse_uav_torch.utils import profiling
+
 S = TypeVar("S")
-
-# Convergence tests made by run_until since the last reset (see reset_checks).
-checks: dict[str, int] = {"count": 0}
-
-
-def reset_checks() -> None:
-    checks["count"] = 0
 
 
 def run_until(step: Callable[[S], S], state: S, done: Callable[[S], torch.Tensor], max_steps: int,
-              every: int = 8) -> S:
+              every: int = 8, *, site: str) -> S:
     """Apply ``step`` until ``done(state)`` (a 0-d bool tensor) holds or
-    ``max_steps`` steps have run, testing ``done`` after every ``every`` steps.
+    ``max_steps`` steps have run, testing ``done`` after every ``every`` steps
+    (each test the sync ``site``).
 
     ``step`` must map a state for which ``done`` holds to itself; then the
     result equals that of testing after every step, with at most
@@ -40,7 +37,8 @@ def run_until(step: Callable[[S], S], state: S, done: Callable[[S], torch.Tensor
         for _ in range(n):
             state = step(state)
         steps += n
-        checks["count"] += 1
-        if bool(done(state)):
+        with profiling.sync(site):
+            converged = bool(done(state))
+        if converged:
             break
     return state

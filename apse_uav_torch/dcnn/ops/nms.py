@@ -54,7 +54,8 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
         keep, _ = state
         return valid & ~(suppress & keep[..., :, None]).any(dim=-2), keep
 
-    keep, _ = run_until(step, (valid, ~valid), lambda s: (s[0] == s[1]).all(), n + 1, CHECK_EVERY)
+    keep, _ = run_until(step, (valid, ~valid), lambda s: (s[0] == s[1]).all(), n + 1, CHECK_EVERY,
+                        site="nms_converge")
     return keep
 
 

@@ -33,6 +33,7 @@ from apse_uav_torch.dcnn.hungarian import _BIG, linear_sum_assignment, pad_cost,
 from apse_uav_torch.dcnn.models.association import AssociationHead
 from apse_uav_torch.dcnn.ops.nms import descending_order
 from apse_uav_torch.dcnn.ops.roi_align import sample_grid
+from apse_uav_torch.utils import profiling
 
 
 # Gating pad of the argmin metrics: "farther than anything real" (the
@@ -322,6 +323,7 @@ def associate_frames(state: dict, det: dict, emb: torch.Tensor, cfg: TrackerConf
     (state, recent objects stacked (B, ...))."""
     recents = []
     for t in range(emb.shape[0]):
-        state, recent = tracker_step_assoc(state, {k: v[t] for k, v in det.items()}, emb[t], cfg, image_hw)
+        with profiling.span("track.assoc_step"):
+            state, recent = tracker_step_assoc(state, {k: v[t] for k, v in det.items()}, emb[t], cfg, image_hw)
         recents.append(recent)
     return state, {k: torch.stack([r[k] for r in recents]) for k in recents[0]}

@@ -447,14 +447,14 @@ def run_path(make_pipe, frames, cfg, dev, names):
     distances are finite.  Returns (pipeline, outputs as numpy, launch counts)."""
     import torch
 
-    from apse_uav_torch import _build
     from apse_uav_torch.aruco.pipeline import init_carry
+    from apse_uav_torch.utils import profiling
 
-    _build.reset_counts()
+    profiling.reset_counters()
     pipe = make_pipe()
     _, out = pipe.process(frames, init_carry(cfg, dev), first=True)
     torch.cuda.synchronize()
-    counts = dict(_build.launches)
+    counts = profiling.counted("launch")
     missing = [n for n in names if counts.get(n, 0) == 0]
     if missing:
         raise SmokeFailure(f"kernels not launched on the path: {missing} (counts {counts})")
@@ -597,18 +597,18 @@ def association_stats(associate, ms: float) -> dict:
     """One call of ``associate`` (a batch's association) on the card: its host
     syncs, its device kernels (profiled: launches, busy ms) and its auction
     launches (by kernel) and sweeps per frame."""
-    from apse_uav_torch import _build
     from apse_uav_torch.dcnn import cuda_auction
+    from apse_uav_torch.utils import profiling
 
     syncs = count_syncs(associate)
     prof = profile_call(associate, ms)
-    before = {k: _build.launches.get(k, 0) for k in cuda_auction.KERNELS}
+    before = {k: profiling.counted("launch").get(k, 0) for k in cuda_auction.KERNELS}
     with auction_calls() as counts:
         associate()
     sweeps = auction_sweeps(counts)
     return {"ms": round(ms, 3), "syncs": syncs, "kernel_launches": prof["kernel_launches"],
             "device_busy_ms": prof["device_busy_ms"],
-            "auction_launches": {k: _build.launches.get(k, 0) - n for k, n in before.items()}, **sweeps}
+            "auction_launches": {k: profiling.counted("launch").get(k, 0) - n for k, n in before.items()}, **sweeps}
 
 
 def count_syncs(fn) -> int:
@@ -637,16 +637,18 @@ def nms_timing(fn) -> dict:
     import torch
 
     from apse_uav_torch.dcnn.models import rpn
-    from apse_uav_torch.dcnn.ops import loops, nms
+    from apse_uav_torch.dcnn.ops import nms
+    from apse_uav_torch.utils import profiling
 
     inner, calls = nms.nms_mask, []
 
     def timed(boxes, *args, **kwargs):
         torch.cuda.synchronize()
-        c0, t0 = loops.checks["count"], time.perf_counter()
+        c0, t0 = profiling.counters.get("sync.nms_converge", 0), time.perf_counter()
         out = inner(boxes, *args, **kwargs)
         torch.cuda.synchronize()
-        calls.append(((time.perf_counter() - t0) * 1e3, loops.checks["count"] - c0, list(boxes.shape)))
+        calls.append(((time.perf_counter() - t0) * 1e3, profiling.counters.get("sync.nms_converge", 0) - c0,
+                      list(boxes.shape)))
         return out
 
     nms.nms_mask = rpn.nms_mask = timed
@@ -712,11 +714,11 @@ def auction_check(problems, dev, threshold: float = 0.6, budgets=(AUCTION_BUDGET
     full budget's sweeps per problem."""
     import torch
 
-    from apse_uav_torch import _build
     from apse_uav_torch.dcnn import cuda_auction, hungarian
+    from apse_uav_torch.utils import profiling
 
     got, want = [], []
-    before = {k: _build.launches.get(k, 0) for k in cuda_auction.KERNELS}
+    before = {k: profiling.counted("launch").get(k, 0) for k in cuda_auction.KERNELS}
     want_launches = dict.fromkeys(cuda_auction.KERNELS, 0)
     for kind, arrays in problems:
         t = [torch.as_tensor(a) for a in arrays]
@@ -725,7 +727,7 @@ def auction_check(problems, dev, threshold: float = 0.6, budgets=(AUCTION_BUDGET
             want.append((kind, budget, hungarian.gated_auction_sweeps(*t, threshold, budget)[:2]))
             got.append(cuda_auction.solve(*(a.to(dev) for a in t), threshold, budget))
     torch.cuda.synchronize()
-    launches = {k: _build.launches.get(k, 0) - n for k, n in before.items()}
+    launches = {k: profiling.counted("launch").get(k, 0) - n for k, n in before.items()}
     if dev.type == "cuda" and launches != want_launches:
         raise SmokeFailure(f"auction launches by kernel {launches}, expected {want_launches}")
     sweeps, exhausted, errs = [], 0, []
@@ -883,15 +885,14 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
     detections fall in the MOTS classes, which phase 8 exports."""
     import torch
 
-    from apse_uav_torch import _build
     from apse_uav_torch.cli.track_uav import build_parser, track
     from apse_uav_torch.dcnn import cuda_auction
     from apse_uav_torch.dcnn.config import TrackerConfig, mask_rcnn_r50_fpn, uav_tracker_config
     from apse_uav_torch.dcnn.engines import RcnnTracker
     from apse_uav_torch.dcnn.models.association import init_weights
-    from apse_uav_torch.dcnn.ops import loops
     from apse_uav_torch.evaluation.mots_export import COCO_TO_MOTS
     from apse_uav_torch.preproc import cuda_remap, remap
+    from apse_uav_torch.utils import profiling
     from apse_uav_torch.utils.mask_geometry import dcnn_log_line
     from apse_uav_torch.utils.synthetic import detectron2_checkpoint
 
@@ -920,13 +921,12 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
                                       "--confidence", str(TRACK_CONFIDENCE), "--device", dev.type])
     try:
         with auction_calls() as sweep_counts:
-            _build.reset_counts()
-            loops.reset_checks()
+            profiling.reset_counters()
             t0 = time.perf_counter()
             res = track(args, ((i, frames_np[i]) for i in range(n)), on_frame=lambda i, r: snaps.__setitem__(i, r))
             torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
-            counts, cli_checks = dict(_build.launches), loops.checks["count"]
+            counts, cli_checks = profiling.counted("launch"), profiling.counters.get("sync.nms_converge", 0)
         cli_sweeps = auction_sweeps(sweep_counts)
     finally:
         os.remove(weights_path)
@@ -970,13 +970,13 @@ def tracker_phase(frames_np, mtx, dist, card: str, dev, depth: int = 101) -> dic
     torch.cuda.reset_peak_memory_stats()
     batch()
     peak = torch.cuda.max_memory_allocated()
-    loops.reset_checks()
+    profiling.reset_counters()
     syncs = count_syncs(batch)
-    checks = loops.checks["count"]
+    checks = profiling.counters.get("sync.nms_converge", 0)
     x = torch.from_numpy(batch_np).to(dev)
-    loops.reset_checks()
+    profiling.reset_counters()
     syncs_dispatch = count_syncs(lambda: tracker.process_frames_async(pre(x, with_gray=False)[0]))
-    checks_dispatch = loops.checks["count"]
+    checks_dispatch = profiling.counters.get("sync.nms_converge", 0)
     profile = profile_call(batch, batch_ms)
     nms_batch = nms_timing(batch)
     log({"phase": "tracker", "frames": n, "size": [w, h], "batch": TRACK_BATCH, "depth": depth,
@@ -1074,13 +1074,13 @@ def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
     memory."""
     import torch
 
-    from apse_uav_torch import _build
     from apse_uav_torch.cli import tracker_test
     from apse_uav_torch.dcnn import cuda_auction
     from apse_uav_torch.dcnn.engines import full_fp32
     from apse_uav_torch.dcnn.models.mask_rcnn import RPN_LEVELS
     from apse_uav_torch.preproc import cuda_remap
     from apse_uav_torch.train.checkpoint import save_state
+    from apse_uav_torch.utils import profiling
 
     n, (h, w) = frames_np.shape[0], frames_np.shape[1:3]
     out_dir = os.path.join(OUT_DIR, "tracker_eval")
@@ -1096,10 +1096,10 @@ def tracker_eval_phase(frames_np, t7: dict, card: str, dev) -> dict:
             args = tracker_test.build_parser().parse_args(flags + extra)
             built = tracker_test.build_tracker(args, (h, w))
             with auction_calls() as sweep_counts:
-                _build.reset_counts()
+                profiling.reset_counters()
                 recents, stats = tracker_test.track_sequence(args, list(frames_np), built)
                 torch.cuda.synchronize()
-                counts = dict(_build.launches)
+                counts = profiling.counted("launch")
             cli_sweeps = auction_sweeps(sweep_counts)
             if counts.get(cuda_remap.K3_RGB, 0) == 0:
                 raise SmokeFailure(f"tracker_eval {name}: {cuda_remap.K3_RGB} not launched (counts {counts})")
@@ -1530,10 +1530,10 @@ def train_detector_phase(ckpt: dict, card: str, dev, hw=None, depth: int = 101) 
 
     import torch
 
-    from apse_uav_torch import _build
     from apse_uav_torch.cli import finetune_uav
     from apse_uav_torch.dcnn import flax_init
     from apse_uav_torch.train import checkpoint as tckpt, loop, optim, steps
+    from apse_uav_torch.utils import profiling
     from apse_uav_torch.utils.synthetic import detection_scenes
 
     root = os.path.join(OUT_DIR, "train_detector")
@@ -1556,7 +1556,7 @@ def train_detector_phase(ckpt: dict, card: str, dev, hw=None, depth: int = 101) 
     hw = tuple(args.train_size)
     evals = [next(detection_scenes(args.batch_size, hw, seed=99))]
     losses, logs = [], []
-    _build.reset_counts()
+    profiling.reset_counters()
     t0 = time.perf_counter()
     model = loop.finetune_detector(cfg, detection_scenes(args.batch_size, hw, seed=0), lambda: evals, workdir,
                                    max_iter=args.max_iter, to_train=tuple(args.to_train), lr=args.lr,
@@ -1564,7 +1564,7 @@ def train_detector_phase(ckpt: dict, card: str, dev, hw=None, depth: int = 101) 
                                    on_step=lambda i, l: losses.append({k: float(v) for k, v in l.items()}))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = dict(_build.launches)
+    counts = profiling.counted("launch")
     if len(losses) != 6 or not all(np.isfinite(v) for l in losses for v in l.values()):
         raise SmokeFailure(f"train_detector: losses {losses}")
     trained = [k for k, lab in optim.param_labels(list(init), args.to_train).items() if lab == "train"]
@@ -1688,11 +1688,11 @@ def reset_and_read(fn):
     after: (its result, the counts).  Of the slice-8 paths only the ArUco
     front of phase 20 reaches kernels of ``csrc``; the others leave every
     count at 0."""
-    from apse_uav_torch import _build
+    from apse_uav_torch.utils import profiling
 
-    _build.reset_counts()
+    profiling.reset_counters()
     out = fn()
-    return out, dict(_build.launches)
+    return out, profiling.counted("launch")
 
 
 def rel_err(a, b) -> float:
@@ -2418,11 +2418,11 @@ def operating_point_phase(mtx, dist, card: str, dev, size=(W, H)) -> dict:
     through the two-pass and the single-pass ``ArucoPipeline`` (counts set to
     0 before each run, the pipeline built in it, so its colour table counts),
     held against ground truth (``score_scene``)."""
-    from apse_uav_torch import _build
     from apse_uav_torch.aruco import cuda_labeling, cuda_proposals
     from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
     from apse_uav_torch.device import synchronize
     from apse_uav_torch.preproc import cuda_pool, cuda_remap
+    from apse_uav_torch.utils import profiling
     from apse_uav_torch.utils.synthetic import SceneRenderer
 
     t_phase = time.perf_counter()
@@ -2444,7 +2444,7 @@ def operating_point_phase(mtx, dist, card: str, dev, size=(W, H)) -> dict:
     for name, cfg, names in paths:
         scores = []
         for (alt, yaw), frame in zip(OP_SCENES, frames):
-            _build.reset_counts()
+            profiling.reset_counters()
             pipe = ArucoPipeline(mtx, dist, size, cfg, device=dev)
             carry = init_carry(cfg, dev)
             synchronize(dev)
@@ -2452,7 +2452,7 @@ def operating_point_phase(mtx, dist, card: str, dev, size=(W, H)) -> dict:
             _, out = pipe.process(frame, carry, first=True)
             synchronize(dev)
             call_ms = (time.perf_counter() - t0) * 1e3
-            counts = dict(_build.launches)
+            counts = profiling.counted("launch")
             missing = [n for n in names if counts.get(n, 0) == 0]
             if missing:
                 raise SmokeFailure(f"operating point {name} at {alt} m, yaw {yaw}: kernels not launched: {missing}")
@@ -2531,7 +2531,7 @@ def main(argv=None) -> int:
     from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
     from apse_uav_torch.core import camera
     from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
-    from apse_uav_torch.utils import csv_io
+    from apse_uav_torch.utils import csv_io, profiling
     from apse_uav_torch.utils.synthetic import labeling_masks, render_scene
 
     # -- 1. build -------------------------------------------------------------
@@ -2582,11 +2582,11 @@ def main(argv=None) -> int:
     log({"phase": "single_pass_gpu_cpu", **gpu_vs_cpu(spipe, scpipe, scfg, frames[:2], dev)})
 
     # -- 4. Preprocessor (K3's RGB mode) on the HWC frames ------------------------
-    _build.reset_counts()
+    profiling.reset_counters()
     pre = remap.Preprocessor(mtx, dist, (W, H), device=dev)
     rgb, gray_rgb = pre(frames_hwc)
     torch.cuda.synchronize()
-    pcounts = dict(_build.launches)
+    pcounts = profiling.counted("launch")
     if pcounts.get(cuda_remap.K3_RGB, 0) == 0 or pcounts.get(cuda_remap.TABLE, 0) == 0:
         raise SmokeFailure(f"{cuda_remap.K3_RGB} or its table not launched by Preprocessor (counts {pcounts})")
     rgb_plain, gray_plain = remap.remap_rgb_gray_u8(frames_hwc, pre.map_xy, hwc=True)

@@ -23,6 +23,7 @@ from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, in
 from apse_uav_torch.core import camera
 from apse_uav_torch.dcnn import cuda_auction, hungarian
 from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
+from apse_uav_torch.utils import profiling
 from apse_uav_torch.utils.synthetic import (AUCTION_KINDS, MarkerSpec, auction_crafted, auction_problem, labeling_masks,
                                             render_scene)
 
@@ -277,14 +278,13 @@ def test_remap_rgb_mode_bit_identical(dev, cam, frames, table):
 def test_single_pass_cuda_matches_cpu(cam, frames):
     """The single-pass front on the card (K3 full frame, K2, K1) against the
     port on the CPU: same detections and LEDs, corners within 0.05 px."""
-    from apse_uav_torch import _build
-
     cfg = ArucoPipelineConfig(two_pass=False)
     gpipe = ArucoPipeline(*cam, (W, H), cfg, device="cuda")
     cpipe = ArucoPipeline(*cam, (W, H), cfg, device="cpu")
-    _build.reset_counts()
+    profiling.reset_counters()
     _, g = gpipe.process(frames, init_carry(cfg, "cuda"), first=True)
-    assert all(_build.launches.get(n, 0) > 0 for n in (cuda_labeling.NAME, cuda_proposals.NAME, cuda_remap.K3))
+    launches = profiling.counted("launch")
+    assert all(launches.get(n, 0) > 0 for n in (cuda_labeling.NAME, cuda_proposals.NAME, cuda_remap.K3))
     _, c = cpipe.process(frames.cpu(), init_carry(cfg, "cpu"), first=True)
     for key in ("detected", "measured", "leds"):
         assert torch.equal(g[key].cpu(), c[key]), key
@@ -333,15 +333,13 @@ def test_tracker_cuda_matches_cpu(dev):
 
 def test_tracker_dispatch_syncs_only_to_test_convergence(dev):
     """Dispatching a batch on the card synchronises with the host only at the
-    NMS and auction convergence tests (counted by ops.loops)."""
+    NMS convergence tests (counted as ``sync.nms_converge``)."""
     import warnings
-
-    from apse_uav_torch.dcnn.ops import loops
 
     tracker = _tiny_tracker("cuda")
     x = torch.from_numpy(np.random.default_rng(2).integers(0, 255, (2, 100, 160, 3), np.uint8)).to(dev)
     tracker.process_frames(x)
-    loops.reset_checks()
+    profiling.reset_counters()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -351,7 +349,60 @@ def test_tracker_dispatch_syncs_only_to_test_convergence(dev):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
-    assert syncs == loops.checks["count"] > 0, (syncs, loops.checks["count"])
+    assert syncs == profiling.counters.get("sync.nms_converge", 0) > 0, (syncs, profiling.counters)
+    assert set(profiling.counted("sync")) == {"nms_converge"}
+
+
+def _sync_warnings(fn) -> list:
+    """Where fn() synchronised the host with the card, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports it: (file, line) a sync."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [(os.path.basename(w.filename), w.lineno) for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+@pytest.mark.parametrize("batch", [4, 1])
+def test_tracker_sync_counters_match_the_card(dev, batch):
+    """One batch of ``track_uav.track_frames`` (upload, ``Preprocessor``,
+    dispatch, materialize) at batch 4 and 1: the ``sync.*`` counters equal
+    the host syncs the card reports, so every one is counted at its site."""
+    from apse_uav_torch.cli.track_uav import track_frames
+    from apse_uav_torch.preproc.remap import Preprocessor
+
+    mtx, dist = camera.load_camera_params(os.path.join(REPO, "data", "cam_params.json"))
+    pre = Preprocessor(mtx * np.array([[160 / 3840, 1, 160 / 3840], [1, 100 / 2160, 100 / 2160], [1, 1, 1]]), dist,
+                       (160, 100), device=dev)
+    tracker = _tiny_tracker("cuda")
+    frames = np.random.default_rng(3).integers(0, 255, (2 * batch, 100, 160, 3), np.uint8)
+    list(track_frames(tracker, pre, ((i, frames[i]) for i in range(batch)), batch))
+    profiling.reset_counters()
+    syncs = _sync_warnings(lambda: list(track_frames(tracker, pre, ((i, frames[i]) for i in range(batch, 2 * batch)),
+                                                     batch)))
+    counted = profiling.counted("sync")
+    assert len(syncs) == sum(counted.values()), f"{syncs} {counted}"
+    assert counted["upload"] == 1 and counted["nms_converge"] > 0 and counted["materialize"] > 0
+
+
+@pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "single_pass"])
+def test_aruco_sync_counters_match_the_card(dev, cam, frames, two_pass):
+    """One ``ArucoPipeline.process`` call after a first: the ``sync.*``
+    counters equal the host syncs the card reports."""
+    cfg = ArucoPipelineConfig(two_pass=two_pass)
+    pipe = ArucoPipeline(*cam, (W, H), cfg, device="cuda")
+    carry, _ = pipe.process(frames, init_carry(cfg, "cuda"), first=True)
+    profiling.reset_counters()
+    syncs = _sync_warnings(lambda: pipe.process(frames, carry))
+    counted = profiling.counted("sync")
+    assert len(syncs) == sum(counted.values()), f"{syncs} {counted}"
 
 
 def test_bf16_maps_near_float32_and_cpu(dev):
@@ -575,13 +626,11 @@ def test_auction_kernel_bit_identical(dev, shape, kernel):
     way.  Up to 32 x 32 every solve launches the warp kernel; above, the
     block kernel, which at 40 x 70 takes two rows a warp and three columns a
     lane."""
-    from apse_uav_torch import _build
-
     rows, cols = shape
     rng = np.random.default_rng(rows * 1000 + cols)
     problems = [(kind, auction_problem(kind, rng, rows, cols)) for kind in AUCTION_KINDS for _ in range(8)]
     problems += auction_crafted(rng, rows, cols)
-    _build.reset_counts()
+    profiling.reset_counters()
     exhausted = 0
     for kind, arrays in problems:
         t = [torch.from_numpy(a) for a in arrays]
@@ -593,25 +642,23 @@ def test_auction_kernel_bit_identical(dev, shape, kernel):
             assert int(sweeps.cpu()[0]) == int(want_sweeps[0]), (kind, budget)
             exhausted += budget < 128 and int(want_sweeps[0]) == budget
     assert exhausted > 0
-    assert _build.launches == {kernel: len(problems) * 5}
+    assert profiling.counted("launch") == {kernel: len(problems) * 5}
 
 
 @pytest.mark.parametrize("shape", [(32, 32), (40, 70)], ids=["warp_32x32", "block_40x70"])
 def test_auction_kernel_does_not_sync(dev, shape):
     """One solve under sync-as-error on each kernel: the wrapper reads
     nothing back from the card (the sweep count stays there)."""
-    from apse_uav_torch import _build
-
     t = [torch.from_numpy(a).to(dev) for a in auction_problem("random", np.random.default_rng(7), *shape)]
     cuda_auction.solve(*t, 0.6)
     torch.cuda.synchronize()
-    _build.reset_counts()
+    profiling.reset_counters()
     torch.cuda.set_sync_debug_mode("error")
     try:
         got, sweeps = cuda_auction.solve(*t, 0.6)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert _build.launches == {cuda_auction.kernel_for(*shape): 1}
+    assert profiling.counters == {"launch." + cuda_auction.kernel_for(*shape): 1}
     want, want_sweeps, _ = hungarian.gated_auction_sweeps(*(a.cpu() for a in t), 0.6)
     assert torch.equal(got.cpu(), want) and int(sweeps.cpu()[0]) == int(want_sweeps[0])
 
@@ -655,25 +702,21 @@ def test_associate_frames_cuda_matches_cpu(dev):
     (the plain version): every snapshot field equal, the warp kernel
     launched once a frame and the block kernel never, no convergence test of
     the auction."""
-    from apse_uav_torch import _build
     from apse_uav_torch.dcnn import structures, tracker
     from apse_uav_torch.dcnn.config import TrackerConfig
-    from apse_uav_torch.dcnn.ops import loops
 
     tcfg = TrackerConfig()
     det, emb = association_sequence()
     out = {}
     for device in (dev, torch.device("cpu")):
         state = structures.init_track_state(tcfg.max_tracks, tcfg.embedding_dim, device=device)
-        _build.reset_counts()
-        loops.reset_checks()
+        profiling.reset_counters()
         _, recent = tracker.associate_frames(state, {k: torch.from_numpy(v).to(device) for k, v in det.items()},
                                              torch.from_numpy(emb).to(device), tcfg, (500, 500))
         out[device.type] = {k: v.cpu() for k, v in recent.items()}
         if device.type == "cuda":
-            assert _build.launches.get(cuda_auction.WARP, 0) == emb.shape[0]
-            assert _build.launches.get(cuda_auction.BLOCK, 0) == 0
-            assert loops.checks["count"] == 0
+            assert profiling.counted("launch") == {cuda_auction.WARP: emb.shape[0]}
+            assert profiling.counted("sync") == {}
     assert int(out["cpu"]["valid"][-1].sum()) > 0  # the store is full from frame 2: these tracks matched
     for k, want in out["cpu"].items():
         assert torch.equal(out["cuda"][k], want), k

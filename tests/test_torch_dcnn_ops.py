@@ -97,16 +97,20 @@ def test_batched_nms_identical():
 
 def test_run_until_tests_every_k_steps_same_result():
     """Testing convergence every k steps gives the result of testing after
-    every step, within the step budget; the number of tests is counted."""
+    every step, within the step budget; the number of tests is counted as
+    ``sync.<site>``."""
+    from apse_uav_torch.utils import profiling
+
     def step(x):
         return torch.clamp(x - 1, min=0)
 
     for every in (1, 3, 8):
-        loops.reset_checks()
-        got = loops.run_until(step, torch.tensor([5, 2, 0]), lambda x: (x == 0).all(), 100, every)
+        profiling.reset_counters()
+        got = loops.run_until(step, torch.tensor([5, 2, 0]), lambda x: (x == 0).all(), 100, every,
+                              site="nms_converge")
         assert got.tolist() == [0, 0, 0]
-        assert loops.checks["count"] == -(-5 // every)
-    capped = loops.run_until(step, torch.tensor([50]), lambda x: (x == 0).all(), 7, 4)
+        assert profiling.counters == {"sync.nms_converge": -(-5 // every)}
+    capped = loops.run_until(step, torch.tensor([50]), lambda x: (x == 0).all(), 7, 4, site="nms_converge")
     assert capped.tolist() == [43]
 
 

@@ -3,7 +3,7 @@ the CPU: ``sharded_inference_fn`` and ``shard_map_batch`` over a mesh of two
 CPU devices against the unsharded run, the data-parallel detector step over
 two gloo processes against one process on the same batch (as
 ``tests/test_parallel.py`` holds JAX's mesh step against one device), the
-dry run, ``StageTimer``, ``benchmark`` and ``trace``.
+dry run, spans, ``benchmark`` and ``trace``.
 
 Inputs are made with numpy from fixed seeds; tolerances are stated per test.
 """
@@ -115,18 +115,21 @@ def test_dryrun_multichip_on_two_gloo_processes():
 
 
 def test_stage_timer_benchmark_and_trace(tmp_path):
-    """``StageTimer`` counts and sums its stages (``timed`` and ``stage``),
-    ``benchmark`` chains the seed serially through ``iters`` calls, and
-    ``trace`` writes a Chrome trace that names the traced op."""
-    timer = profiling.StageTimer()
-    f = timer.timed("square", lambda x: x * x)
-    f(torch.ones(4, 4))
-    f(torch.ones(4, 4))
-    ref = [None]
-    with timer.stage("add", ref):
-        ref[0] = torch.ones(3) + 1
-    assert timer.counts == {"square": 2, "add": 1}
-    assert "square" in timer.summary() and timer.totals["square"] > 0
+    """The stage timing of the profiling utilities: spans (which replace the
+    reference's ``StageTimer``) time named stages, ``benchmark`` chains the
+    seed serially through ``iters`` calls, and ``trace`` writes a Chrome
+    trace that names the traced op and the span around it."""
+    profiling.reset_spans()
+    profiling.enable_spans(True)
+    try:
+        with profiling.span("square"):
+            torch.ones(4, 4) * torch.ones(4, 4)
+        with profiling.span("add"):
+            torch.ones(3) + 1
+    finally:
+        profiling.enable_spans(False)
+    totals = profiling.summary()
+    assert {k: v["n"] for k, v in totals.items()} == {"square": 1, "add": 1} and totals["square"]["ns"] > 0
 
     seeds = []
 
@@ -137,9 +140,13 @@ def test_stage_timer_benchmark_and_trace(tmp_path):
     assert profiling.benchmark(g, torch.ones(8), iters=3, warmup=1) > 0
     assert seeds == [1, 17, 145, 165]  # (8 * (1 + s)) % 251 + 1, chained
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        torch.mm(torch.ones(16, 16), torch.ones(16, 16))
+        with profiling.span("test.mm"):
+            torch.mm(torch.ones(16, 16), torch.ones(16, 16))
     assert any("mm" in e.key for e in prof.key_averages())
-    assert "aten::mm" in (tmp_path / "trace" / "trace.json").read_text()
+    text = (tmp_path / "trace" / "trace.json").read_text()
+    assert "aten::mm" in text and "test.mm" in text
+    assert profiling.span("after") is profiling.span("trace")  # spans off again
+    profiling.reset_spans()
 
 
 def test_frame_sharding_check_on_cpu():
