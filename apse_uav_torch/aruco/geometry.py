@@ -64,11 +64,12 @@ def average_marker_size(msp_ring: torch.Tensor, msp: torch.Tensor):
     return new_ring, size_corr, msp * size_corr
 
 
-def project_int(points, rvec, tvec, mtx, dist, bias_xy=(0.0, 0.0), tilt: bool | None = None):
-    """projectPoints + np.maximum(0, np.int32(...)): truncate, clamp at 0."""
+def project_int(points, rvec, tvec, mtx, dist, bias: torch.Tensor | None = None, tilt: bool | None = None):
+    """projectPoints + np.maximum(0, np.int32(...)): truncate, clamp at 0;
+    ``bias`` (2,) x, y pixels is added before the truncation."""
     proj = camera.project_points(points, rvec, tvec, mtx, dist, tilt=tilt)
-    if tuple(bias_xy) != (0.0, 0.0):
-        proj = proj + torch.tensor(bias_xy, dtype=proj.dtype, device=proj.device)
+    if bias is not None:
+        proj = proj + bias
     return torch.clamp(torch.trunc(proj), min=0.0)
 
 

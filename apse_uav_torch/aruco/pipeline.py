@@ -13,11 +13,13 @@ Counterpart of the JAX reference's ``aruco/pipeline.py``:
   reference's CPU path does.
 * **scan**: the reference's per-frame state machine (DIFF_MAX gating,
   marker-size rings, altitude fallback, LEDs, distances) as a Python loop
-  over frames with the same carry semantics.
+  over frames with the same carry semantics.  It makes no host sync, so on
+  a card the loop of a call is captured once as a CUDA graph and replayed
+  (counters ``aruco.scan_graph.capture`` and ``aruco.scan_graph.replay``).
 
 Each stage is a span of ``utils/profiling.py`` (``aruco.process`` >
 ``aruco.front`` > ``aruco.pool``, ..., ``aruco.pose``; ``aruco.scan`` >
-``aruco.step``).
+``aruco.step``, the steps on the CPU and while a graph is captured).
 
 Vehicle slots are fixed: slot v in 0..3 is marker id v + 1; the host car is
 id 4 (slot 3).
@@ -26,6 +28,7 @@ id 4 (slot 3).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -92,16 +95,14 @@ def _slot_by_id(ids: torch.Tensor, corners: torch.Tensor):
     return present, slot
 
 
-def _led_value(gray: torch.Tensor, rvec, tvec, size_corr, altitude_real, mtx, dist, threshold, bias_xy, tilt):
+def _led_value(gray: torch.Tensor, rvec, tvec, size_corr, altitude_real, mtx, dist, led_points, threshold, bias,
+               tilt):
     """detectAndDrawLEDs: 8 LED windows (5x5 means) -> 8-bit value.
     Python slicing semantics: gray[y-2:y+3, x-2:x+3] is empty when y < 2 or
-    x < 2; rows/cols beyond the image are clipped; sum / 25 either way."""
-    pts = geo.project_int(geo.const(geo.LED_POINTS, gray.device), rvec, tvec / size_corr, mtx, dist,
-                          bias_xy=bias_xy, tilt=tilt)  # (8, 2) x, y
-    if threshold is None:
-        thr = torch.clamp(190.0 + torch.trunc(altitude_real), min=240.0)
-    else:
-        thr = torch.tensor(float(threshold), dtype=torch.float32, device=gray.device)
+    x < 2; rows/cols beyond the image are clipped; sum / 25 either way.
+    ``threshold``: a float32 scalar tensor, or None for the altitude's."""
+    pts = geo.project_int(led_points, rvec, tvec / size_corr, mtx, dist, bias=bias, tilt=tilt)  # (8, 2) x, y
+    thr = torch.clamp(190.0 + torch.trunc(altitude_real), min=240.0) if threshold is None else threshold
     h, w = gray.shape
     x = pts[:, 0].to(torch.int64)
     y = pts[:, 1].to(torch.int64)
@@ -117,6 +118,42 @@ def _led_value(gray: torch.Tensor, rvec, tvec, size_corr, altitude_real, mtx, di
     bits = (mean > thr).to(torch.int32)
     weights = 2 ** torch.arange(7, -1, -1, device=gray.device, dtype=torch.int32)
     return (bits * weights).sum().to(torch.int32)
+
+
+def _fallback_altitude(tvec: torch.Tensor, present: torch.Tensor, host_slot: torch.Tensor):
+    """The reference's altitude fallback: the tvec z of the last present
+    vehicle among slots 0-2, else of the host's slot (``host_slot``, a
+    one-element int64 tensor holding 3).  A gather, so no sync on the card.
+    Returns (altitude, whether any of slots 0-2 is present)."""
+    any_veh = present[:3].any()
+    idx = torch.where(any_veh, 2 - torch.argmax(torch.flip(present[:3], (0,)).to(torch.int32)), host_slot)
+    return tvec[:, 2].index_select(0, idx.reshape(1))[0], any_veh
+
+
+def _pack(named: dict) -> tuple[list[torch.Tensor], list[tuple]]:
+    """Tensors by name -> one flat buffer a dtype and the layout that
+    :func:`_unpack` views them back with."""
+    groups: dict[torch.dtype, list[torch.Tensor]] = {}
+    layout = []
+    for name, t in named.items():
+        group = groups.setdefault(t.dtype, [])
+        layout.append((name, list(groups).index(t.dtype), sum(x.numel() for x in group), t.shape))
+        group.append(t)
+    return [torch.cat([x.reshape(-1) for x in group]) for group in groups.values()], layout
+
+
+def _unpack(flats: list[torch.Tensor], layout: list[tuple]) -> dict:
+    return {name: flats[g].narrow(0, offset, shape.numel()).view(shape) for name, g, offset, shape in layout}
+
+
+class _ScanGraph(NamedTuple):
+    """One captured scan: the buffers it reads, the flat buffers it writes
+    and their layout."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list[torch.Tensor]
+    flats: list[torch.Tensor]
+    layout: list[tuple]
 
 
 class ArucoPipeline:
@@ -155,6 +192,20 @@ class ArucoPipeline:
             mtx_p = torch.as_tensor(twopass.pooled_camera(mtx, st), dtype=torch.float32, device=self.device)
             self.map_pooled = camera.undistort_rectify_map(mtx_p, self.dist, (wp, hp), tilt=self.tilt)
             self._groups = tuple(det._patch_groups(h, w, self.params))
+        # The scan's constants, made once here so that a step copies nothing from the host.
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._led_points = torch.tensor(geo.LED_POINTS, **f32)
+        self._veh4_lidar = torch.tensor(geo.VEH4_LIDAR, **f32)
+        self._veh_dims = torch.tensor(geo.VEH_DIMS, **f32)
+        self._host_slot = torch.tensor([3], device=self.device)
+        thr = self.cfg.leds_threshold
+        self._led_threshold = None if thr is None else torch.tensor(float(thr), **f32)
+        bias = tuple(self.cfg.led_bias_px)
+        self._led_bias = None if bias == (0.0, 0.0) else torch.tensor(bias, **f32)
+        # DCNN CSV columns of the centroids (x, y) and bbox points (x, y) of vehicles 1-3.
+        self._centroid_cols = torch.tensor([[5, 6], [9, 10], [13, 14]], device=self.device)
+        self._bbox_cols = torch.tensor([[7, 8], [11, 12], [15, 16]], device=self.device)
+        self._graphs: dict[tuple, _ScanGraph] = {}
 
     # -- stateless front ----------------------------------------------------
 
@@ -223,7 +274,6 @@ class ArucoPipeline:
     def _step(self, carry: dict, f: dict, first: bool, crow: torch.Tensor):
         cfg = self.cfg
         mtx, dist, tilt = self.mtx, self.dist, self.tilt
-        dev = self.device
         present = f["present"]
         rvec = f["rvec"]
         tvec = f["utvec"] * carry["marker_length"]
@@ -243,12 +293,7 @@ class ArucoPipeline:
 
         # Host branch: altitude (with the reference's fallback), marker length.
         altitude_raw = tvec[3, 2]
-        any_veh = present[:3].any()
-        # A copy from the host and an index by a device scalar: two syncs on the card.
-        with profiling.sync("altitude_fallback", 2):
-            fb_idx = torch.where(any_veh, 2 - torch.argmax(torch.flip(present[:3], (0,)).to(torch.int32)),
-                                 torch.tensor(3, device=dev))
-            alt_fb = tvec[fb_idx, 2]
+        alt_fb, any_veh = _fallback_altitude(tvec, present, self._host_slot)
         use_fb = ~host & (any_veh | present[3])
         altitude_eff = torch.where(host, altitude_raw,
                                    torch.where(use_fb, alt_fb, carry["altitude_real"] * geo.MARKER_DIV))
@@ -264,21 +309,19 @@ class ArucoPipeline:
 
         leds = torch.where(
             host,
-            _led_value(f["gray"], rvec[3], tvec[3], size_corr[3], altitude_real, mtx, dist, cfg.leds_threshold,
-                       cfg.led_bias_px, tilt),
+            _led_value(f["gray"], rvec[3], tvec[3], size_corr[3], altitude_real, mtx, dist, self._led_points,
+                       self._led_threshold, self._led_bias, tilt),
             carry["leds"],
         )
-        lidar_pt = geo.project_int(geo.const(geo.VEH4_LIDAR, dev), rvec[3], tvec[3] / size_corr[3], mtx, dist,
-                                   tilt=tilt)[0]
+        lidar_pt = geo.project_int(self._veh4_lidar, rvec[3], tvec[3] / size_corr[3], mtx, dist, tilt=tilt)[0]
         lidar_xy = torch.where(host, lidar_pt, carry["lidar_xy"])
 
         # Perspective-modified bbox dims under both pose-ambiguity basins.
         flat_a4 = torch.abs(rotation.rodrigues_to_matrix(rvec)[:, 2, 2])
         flat_b4 = torch.abs(rotation.rodrigues_to_matrix(rvec2)[:, 2, 2])
         a_is_flat4 = flat_a4 >= flat_b4
-        veh_dims_c = geo.const(geo.VEH_DIMS, dev)
-        veh_dims = geo.bbox_dims_update(tvec, rvec, veh_dims_c)
-        veh_dims2 = geo.bbox_dims_update(tvec2, rvec2, veh_dims_c)
+        veh_dims = geo.bbox_dims_update(tvec, rvec, self._veh_dims)
+        veh_dims2 = geo.bbox_dims_update(tvec2, rvec2, self._veh_dims)
 
         # Distance pass (vehicles 0..2 batched).
         if cfg.source_lidar:
@@ -310,8 +353,8 @@ class ArucoPipeline:
 
         if cfg.use_centroid_data:
             crow_f = crow.to(torch.float32)
-            cent = torch.stack([crow_f[[5, 9, 13]], crow_f[[6, 10, 14]]], dim=1).clamp(min=0.0)
-            bbox = torch.stack([crow_f[[7, 11, 15]], crow_f[[8, 12, 16]]], dim=1).clamp(min=0.0)
+            cent = crow_f[self._centroid_cols].clamp(min=0.0)
+            bbox = crow_f[self._bbox_cols].clamp(min=0.0)
             src = lidar_xy.to(torch.float32)
             dc_new = geo.pixel_distance_to_metres(src, cent, marker_length, msp_avg[3], msp_avg[:3])
             db_new = geo.pixel_distance_to_metres(src, bbox, marker_length, msp_avg[3], msp_avg[:3])
@@ -346,23 +389,85 @@ class ArucoPipeline:
 
         first_frame: (T,) bool, True only on the sequence's first frame;
         centroid_rows: (T, 17) int DCNN CSV rows (zeros when unused).
-        Returns (carry, outputs stacked over T).
+        Returns (carry, outputs stacked over T), tensors of their own.
+
+        On a card the whole scan is one CUDA graph, captured once for each
+        T, pattern of first frames and input layout, then replayed; on the
+        CPU the steps run one by one.
         """
-        t = front["present"].shape[0]
         with profiling.span("aruco.scan"):
             if torch.is_tensor(first_frame):
                 with profiling.sync("first_frame"):
                     first_frame = first_frame.tolist()
-            firsts = [bool(v) for v in first_frame]
+            firsts = tuple(bool(v) for v in first_frame)
+            if self.device.type == "cuda":
+                return self._scan_graph(carry, front, firsts, centroid_rows)
             if centroid_rows is None:
-                centroid_rows = torch.zeros((t, 17), dtype=torch.int32, device=self.device)
-            outs = []
-            for i in range(t):
-                with profiling.span("aruco.step"):
-                    f = {k: v[i] for k, v in front.items()}
-                    carry, out = self._step(carry, f, firsts[i], centroid_rows[i])
-                outs.append(out)
-            return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+                centroid_rows = torch.zeros((len(firsts), 17), dtype=torch.int32, device=self.device)
+            return self._scan_eager(carry, front, firsts, centroid_rows)
+
+    def _scan_eager(self, carry: dict, front: dict, firsts: tuple, centroid_rows: torch.Tensor):
+        """The steps one by one: the CPU path, and what a graph captures."""
+        outs = []
+        for i, first in enumerate(firsts):
+            with profiling.span("aruco.step"):
+                f = {k: v[i] for k, v in front.items()}
+                carry, out = self._step(carry, f, first, centroid_rows[i])
+            outs.append(out)
+        return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def _scan_graph(self, carry: dict, front: dict, firsts: tuple, centroid_rows: torch.Tensor | None):
+        """The scan as a CUDA graph: the inputs copied into the graph's
+        buffers, one replay, and its outputs copied out (a copy a dtype), so
+        that what a call returns stays as it is after the next.  A call with
+        a new key runs the steps on a side stream instead, returns their
+        results and captures the graph."""
+        inputs = [*carry.values(), *front.values()] + ([] if centroid_rows is None else [centroid_rows])
+        key = (firsts, tuple((k, v.shape, v.dtype) for k, v in carry.items()),
+               tuple((k, v.shape, v.dtype) for k, v in front.items()), centroid_rows is not None)
+        entry = self._graphs.get(key)
+        if entry is not None:
+            torch._foreach_copy_(entry.inputs, inputs)
+            entry.graph.replay()
+            profiling.count("aruco.scan_graph.replay")
+            return self._split(_unpack([f.clone() for f in entry.flats], entry.layout))
+
+        static = [v.clone() for v in inputs]
+        if centroid_rows is None:
+            static.append(torch.zeros((len(firsts), 17), dtype=torch.int32, device=self.device))
+        n_carry, n_front = len(carry), len(front)
+
+        def run():
+            c = dict(zip(carry, static[:n_carry]))
+            f = dict(zip(front, static[n_carry:n_carry + n_front]))
+            new_carry, out = self._scan_eager(c, f, firsts, static[-1])
+            return _pack({**{("carry", k): v for k, v in new_carry.items()}, **{("out", k): v for k, v in out.items()}})
+
+        # PyTorch's rules for a capture: warm up on a side stream, then
+        # capture there into the graph's private memory pool.  Not through
+        # torch.cuda.graph(), which first synchronizes the device: a host sync.
+        here = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(here)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            flats, layout = run()
+            graph.capture_begin()
+            try:
+                static_flats, _ = run()
+            finally:
+                graph.capture_end()
+        here.wait_stream(side)
+        for f in flats:
+            f.record_stream(here)
+        self._graphs[key] = _ScanGraph(graph, static[:len(inputs)], static_flats, layout)
+        profiling.count("aruco.scan_graph.capture")
+        return self._split(_unpack(flats, layout))
+
+    @staticmethod
+    def _split(named: dict) -> tuple[dict, dict]:
+        carry = {k: v for (part, k), v in named.items() if part == "carry"}
+        return carry, {k: v for (part, k), v in named.items() if part == "out"}
 
     def process(self, frames: torch.Tensor, carry: dict, first: bool = False,
                 centroid_rows: torch.Tensor | None = None):

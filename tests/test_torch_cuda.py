@@ -403,6 +403,88 @@ def test_aruco_sync_counters_match_the_card(dev, cam, frames, two_pass):
     syncs = _sync_warnings(lambda: pipe.process(frames, carry))
     counted = profiling.counted("sync")
     assert len(syncs) == sum(counted.values()), f"{syncs} {counted}"
+    # All in the front: the scan, captured as a graph in this call, makes none.
+    front_sites = {"dictionary_table", "pose_points", "pose_inverse", "pose_mirror"}
+    front_sites |= {"tile_sizes"} if two_pass else set()
+    assert set(counted) == front_sites and profiling.counted("aruco.scan_graph") == {"capture": 1}, counted
+
+
+@pytest.fixture(scope="module")
+def scan_frames(cam, dev):
+    """Four frames: every marker; vehicles 1-3 without the host marker; every
+    marker; vehicle 1 alone.  The scan's altitude fallback runs in the 2nd and 4th."""
+    full = [MarkerSpec(4, (0.0, 0.5), 5, leds=0b10110010), MarkerSpec(1, (-4.0, -2.0), 30),
+            MarkerSpec(2, (4.0, 1.5), -20), MarkerSpec(3, (1.5, -2.5), 90)]
+    scenes = [full, full[1:], full, full[1:2]]
+    return torch.stack([render_scene(*cam, (W, H), specs, altitude=12.0, device=dev).permute(2, 0, 1)
+                        for specs in scenes]).contiguous()
+
+
+SCAN_CASES = {
+    "two_pass": ({}, False),
+    "single_pass": ({"two_pass": False}, False),
+    "centroid": ({"use_centroid_data": True, "source_lidar": True, "n_avg": 3}, True),
+    "leds_bias": ({"leds_threshold": 200.0, "led_bias_px": (0.4, -0.5), "step_frame": 2}, False),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_aruco_scan_graph_matches_the_steps(dev, cam, scan_frames, case):
+    """The scan as a CUDA graph against its steps one by one on the card,
+    outputs and carry bit for bit: three calls of 4 frames from a first
+    call (the host marker absent in two frames a call), then a shorter call
+    of 3.  What a call returned reads the same after the later calls; the
+    4-frame calls capture twice and replay once, the 3-frame call captures
+    once more."""
+    kw, with_rows = SCAN_CASES[case]
+    cfg = ArucoPipelineConfig(**kw)
+    pipe = ArucoPipeline(*cam, (W, H), cfg, device="cuda")
+    rows = None
+    if with_rows:
+        rows = torch.from_numpy(np.random.default_rng(7).integers(-20, 900, (4, 17)).astype(np.int32)).to(dev)
+    profiling.reset_counters()
+    carry_g = carry_e = init_carry(cfg, "cuda")
+    kept = []
+    fell_back = False
+    for i, n in enumerate([4, 4, 4, 3]):
+        front = pipe.front(scan_frames[:n])
+        firsts = [i == 0] + [False] * (n - 1)
+        crows = None if rows is None else rows[:n]
+        carry_g, out_g = pipe.scan(carry_g, front, firsts, crows)
+        eager_rows = torch.zeros((n, 17), dtype=torch.int32, device=dev) if crows is None else crows
+        carry_e, out_e = pipe._scan_eager(carry_e, front, tuple(firsts), eager_rows)
+        assert out_g.keys() == out_e.keys() and carry_g.keys() == carry_e.keys()
+        pairs = [(k, out_g[k], out_e[k]) for k in out_e] + [(k, carry_g[k], carry_e[k]) for k in carry_e]
+        for name, got, want in pairs:
+            assert got.dtype == want.dtype and torch.equal(got, want), (i, name)
+        for old, snapshot in kept:
+            assert all(torch.equal(old[k], snapshot[k]) for k in snapshot), i
+        for result in (carry_g, out_g):
+            kept.append((result, {k: v.clone() for k, v in result.items()}))
+        m = out_e["measured"]
+        fell_back |= bool((~m[:, 3] & m[:, :3].any(1)).any())
+        if i == 2:
+            assert profiling.counted("aruco.scan_graph") == {"capture": 2, "replay": 1}
+    assert profiling.counted("aruco.scan_graph") == {"capture": 3, "replay": 1}
+    assert fell_back and not {"const", "altitude_fallback"} & set(profiling.counted("sync"))
+
+
+def test_aruco_scan_graph_does_not_sync(dev, cam, frames):
+    """The scan's capture and its replay, each under sync-as-error: neither
+    waits for the card."""
+    cfg = ArucoPipelineConfig()
+    pipe = ArucoPipeline(*cam, (W, H), cfg, device="cuda")
+    front = pipe.front(frames)
+    carry = init_carry(cfg, "cuda")
+    profiling.reset_counters()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry, _ = pipe.scan(carry, front, [False, False])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert profiling.counted("aruco.scan_graph") == {"capture": 1, "replay": 1}
 
 
 def test_bf16_maps_near_float32_and_cpu(dev):

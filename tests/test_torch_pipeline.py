@@ -344,6 +344,29 @@ def test_altitude_fallback_on_host_gate_failure(cam, jax_run):
     assert np.array_equal(out["detected"].numpy(), np.asarray(want["detected"]))
 
 
+_PRESENCE = [[bool(p >> v & 1) for v in range(3)] + [False] for p in range(8)] + [[False, False, False, True]]
+
+
+@pytest.mark.parametrize("present", _PRESENCE,
+                         ids=["veh" + "".join("1" if b else "0" for b in p[:3]) for p in _PRESENCE[:8]] + ["host_only"])
+def test_fallback_altitude_gather_matches_the_index(present):
+    """The scan's fallback altitude, a gather, picks the element that the
+    index by a device scalar picked: the z of the last present vehicle
+    among 1-3, else the host's (slot 3), for every presence of vehicles
+    1-3 and for the host alone."""
+    from apse_uav_torch.aruco.pipeline import _fallback_altitude
+
+    tvec = torch.arange(12, dtype=torch.float32).reshape(4, 3) * 1.5 + 0.25
+    present = torch.tensor(present)
+    any_veh = present[:3].any()
+    fb_idx = torch.where(any_veh, 2 - torch.argmax(torch.flip(present[:3], (0,)).to(torch.int32)), torch.tensor(3))
+    want = tvec[fb_idx, 2]
+    got, got_any = _fallback_altitude(tvec, present, torch.tensor([3]))
+    assert got.shape == want.shape == () and torch.equal(got, want) and bool(got_any) == bool(any_veh)
+    last = max((v for v in range(3) if present[v]), default=3)
+    assert got == tvec[last, 2]
+
+
 @pytest.mark.parametrize("save_images", [False, True], ids=["csv", "images"])
 def test_cli_smoke(cam, sequence, port_run, tmp_path, save_images):
     """The port's CLI on the CPU writes the reference's 16-column CSV with

@@ -189,14 +189,15 @@ def test_aruco_call_emits_every_span(recording, two_pass):
         (0, "aruco.process"), (1, "aruco.front"), *((2, n) for n in stages), (2, "aruco.candidates"),
         (2, "aruco.pose"), (1, "aruco.scan"), (2, "aruco.step"), (2, "aruco.step")]
     assert {s.batch for s in got} == {pipe.calls} == {1}
-    # The copies from the host and reads back on the path, each a sync on the card, at their stages.
+    # The copies from the host and reads back on the path, each a sync on the card, at their stages; the
+    # scan's constants are made with the pipeline and its fallback altitude is a gather, so the steps make none.
     syncs = profiling.counted("sync")
-    assert syncs["const"] == 3 * 2 and syncs["altitude_fallback"] == 2 * 2 and syncs["dictionary_table"] > 0
+    assert "const" not in syncs and "altitude_fallback" not in syncs and syncs["dictionary_table"] > 0
     assert {k: syncs[k] for k in ("pose_points", "pose_inverse", "pose_mirror")} == dict.fromkeys(
         ("pose_points", "pose_inverse", "pose_mirror"), 1)
     assert syncs.get("tile_sizes", 0) == two_pass and "first_frame" not in syncs
     stage_of = {s.name: got[s.parent].name for s in got if s.name.startswith("sync.")}
-    assert stage_of["sync.pose_inverse"] == "aruco.pose" and stage_of["sync.altitude_fallback"] == "aruco.step"
+    assert stage_of["sync.pose_inverse"] == "aruco.pose" and "aruco.step" not in stage_of.values()
     profiling.reset_spans()
     profiling.reset_counters()
     front = pipe.front(torch.stack([frame, frame]).contiguous())
