@@ -5,10 +5,11 @@ Mask R-CNN tracker runs over a 4K video (or image directory), logs per-frame
 mask centroids and closest-points-to-host into the 17-column CSV that the
 ArUco pipeline reads, and optionally writes visualised frames; plus
 ``--device cuda|cpu`` (``cuda`` raises when no card is visible, never falls
-back).  With ``--preprocess`` the port's ``Preprocessor`` (kernel K3's RGB
-mode on the card) undistorts and gamma-corrects each batch, which stays on
-the device.  TF32 is switched off, so the float32 model runs in float32;
-``--bf16`` runs the backbone and heads in bfloat16 with float32 parameters,
+back) and ``--arch c4``, which runs Mask R-CNN R-C4 (res5 as the ROI head;
+the re-ID embeddings read its res2) where the reference runs R-FPN.  With
+``--preprocess`` the port's ``Preprocessor`` (kernel K3's RGB mode on the
+card) undistorts and gamma-corrects each batch, which stays on the device.
+TF32 is switched off, so the float32 model runs in float32; ``--bf16`` runs the backbone and heads in bfloat16 with float32 parameters,
 as the reference's ``--bf16`` does.  ``--assoc_weights`` names a checkpoint
 of the port's format (``apse_uav_torch.train.checkpoint``; a reference
 checkpoint converts through ``convert.checkpoint_state``), whose ``params``
@@ -22,7 +23,7 @@ beside the kernels, to ``DIR/trace.json``.
 Usage:
     python -m apse_uav_torch.cli.track_uav --video seq.mp4 \
         --weights model_final.pkl --num_classes 4 --host_id 4 \
-        --log_file dcnn_data.csv [--write_images out/ --preprocess cam.json]
+        --log_file dcnn_data.csv [--write_images out/ --preprocess cam.json] [--arch c4]
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="association head checkpoint (the port's format, e.g. workdir/bestAP); default: the "
                         "reference's default head (flax init under PRNGKey(1))")
     p.add_argument("--depth", type=int, default=101, choices=(50, 101))
+    p.add_argument("--arch", default="fpn", choices=("fpn", "c4"),
+                   help="fpn (mask_rcnn_R_{50,101}_FPN_3x) or c4 (mask_rcnn_R_{50,101}_C4_3x: res5 as the ROI head)")
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--confidence", type=float, default=0.5)
     p.add_argument("--host_id", type=int, default=4, help="host (Ford) track id for closest points")
@@ -96,10 +99,13 @@ def _frames(args):
 def model_config(args):
     """The ModelConfig the flags ask for, by the reference CLIs' rules:
     ``--depth`` (26, 50 or 101), ``--num_classes``, ``--confidence`` and,
-    where the CLI has them, ``--bf16`` and ``--no_mask``."""
-    from apse_uav_torch.dcnn.config import mask_rcnn_r50_fpn, mask_rcnn_r101_fpn
+    where the CLI has them, ``--arch`` (R-FPN without it), ``--bf16`` and
+    ``--no_mask``."""
+    from apse_uav_torch.dcnn import config as C
 
-    cfg = (mask_rcnn_r101_fpn if args.depth == 101 else mask_rcnn_r50_fpn)(num_classes=args.num_classes)
+    r50, r101 = {"fpn": (C.mask_rcnn_r50_fpn, C.mask_rcnn_r101_fpn),
+                 "c4": (C.mask_rcnn_r50_c4, C.mask_rcnn_r101_c4)}[getattr(args, "arch", "fpn")]
+    cfg = (r101 if args.depth == 101 else r50)(num_classes=args.num_classes)
     if args.depth == 26:
         cfg = dataclasses.replace(cfg, depth=26)
     cfg = dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, score_thresh_test=args.confidence))
@@ -131,7 +137,7 @@ def build_tracker(args, orig_hw: tuple[int, int], cfg=None):
     overrides :func:`model_config`."""
     from apse_uav_torch.dcnn import weights as W
     from apse_uav_torch.dcnn.config import TrackerConfig
-    from apse_uav_torch.dcnn.engines import RcnnTracker
+    from apse_uav_torch.dcnn.engines import RcnnTracker, reid_map
     from apse_uav_torch.dcnn.models.association import head_weights
 
     device = cli_device(args)
@@ -151,7 +157,7 @@ def build_tracker(args, orig_hw: tuple[int, int], cfg=None):
     tcfg = TrackerConfig()
     if getattr(args, "association", None):
         tcfg = dataclasses.replace(tcfg, association_metric=args.association)
-    assoc = head_weights(args.assoc_weights, cfg.fpn_channels * tcfg.roi_size**2, tcfg.embedding_dim)
+    assoc = head_weights(args.assoc_weights, reid_map(cfg)[1] * tcfg.roi_size**2, tcfg.embedding_dim)
     tracker = RcnnTracker(cfg, tcfg, weights, assoc, orig_hw, device=device)
     if tracker.predictor.missing:
         print(f"warning: {len(tracker.predictor.missing)} params not found in checkpoint (left at init)")

@@ -6,7 +6,8 @@ Counterpart of the JAX reference's ``dcnn/engines.py``:
   R-CNN inference, detections mapped back to the original frame;
 * :class:`RcnnTracker` -- detect -> embed -> associate -> track over batches
   of frames: the detector and the embeddings run on the whole batch, only
-  the association loops over its frames;
+  the association loops over its frames; the embeddings read the backbone
+  map :func:`reid_map` names (R-FPN's p2, C4's res2);
 * :class:`SelectivePredictor` -- proposals from the coarsest RPN level only,
   each stage timed.
 
@@ -89,6 +90,14 @@ def resize_target(orig_hw: tuple[int, int], min_size: int, max_size: int, div: i
         return -(-v // div) * div
 
     return (pad(nh), pad(nw)), (nh, nw)
+
+
+def reid_map(cfg: ModelConfig) -> tuple[str, int]:
+    """The backbone map the re-ID embeddings read and its channels: R-FPN's
+    ``p2``; C4, which has no pyramid, its trunk's ``res2``, of p2's stride (4)
+    and width (256), so the association head keeps its input size.  At 40 m
+    a 4.0 x 2.2 m roof is ~30 x 16 texels at stride 4, ~7 x 4 on res4."""
+    return ("p2", cfg.fpn_channels) if cfg.architecture == "fpn" else ("res2", 256)
 
 
 class TrackPredictor:
@@ -223,21 +232,24 @@ class RcnnTracker:
         self.cfg = tracker_cfg
         self.orig_hw = tuple(orig_hw)
         self.display_info = tuple(display_info)
-        self.head = AssociationHead(model_cfg.fpn_channels * tracker_cfg.roi_size**2, tracker_cfg.embedding_dim)
+        self.reid, channels = reid_map(model_cfg)
+        self.head = AssociationHead(channels * tracker_cfg.roi_size**2, tracker_cfg.embedding_dim)
         self.head.load_state_dict({k: torch.as_tensor(np.array(v)) for k, v in assoc_weights.items()})
         self.head = self.head.eval().requires_grad_(False).to(self.device)
         self.dispatched = 0
         self.reset()
 
     def reset(self) -> None:
-        self.state = structures.init_track_state(self.cfg.max_tracks, self.cfg.embedding_dim, device=self.device)
+        mask_res = 2 * self.predictor.cfg.roi.mask_pooler_resolution  # the model's masks: R-FPN 28, C4 14
+        self.state = structures.init_track_state(self.cfg.max_tracks, self.cfg.embedding_dim, mask_res,
+                                                 device=self.device)
         self.frame_count = 0
 
     @torch.no_grad()
     def embed(self, dets: dict, feats: dict):
         """The stateless half over the batch: top-k cap + re-ID embeddings."""
         with profiling.span("track.embed"), full_fp32():
-            return tracker_mod.prepare_frame(dets, feats["p2"], self.head, self.cfg, self.orig_hw)
+            return tracker_mod.prepare_frame(dets, feats[self.reid], self.head, self.cfg, self.orig_hw)
 
     @torch.no_grad()
     def associate(self, dets: dict, emb: torch.Tensor) -> dict:

@@ -18,6 +18,12 @@ checkpoint loads key for key.  The entry points are :class:`MaskRCNN`'s
 (detections, maps), ``training_proposals``, ``losses``), and so are the
 compute dtypes: res5 follows the backbone's, the RPN and mask heads the
 head dtype.  :func:`build_model` picks the class of a config.
+
+Tracing (``utils/profiling.py``): at inference the res5 transform and the
+box predictor on the proposals are the span ``track.res5_box``, the rerun on
+the detection boxes and the mask head ``track.res5_mask``; every
+:meth:`MaskRCNNC4.roi_transform` counts its B * N ROIs under the counter
+``c4.res5_rois`` (from the shapes: no sync).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from apse_uav_torch.dcnn.models.roi_heads import (BoxPredictor, MaskHead, box_he
                                                  crop_resize_masks, mask_head_loss, match_proposals_to_gt)
 from apse_uav_torch.dcnn.models.rpn import RPNHead, rpn_losses, select_proposals
 from apse_uav_torch.dcnn.ops.roi_align import roi_align_hwc
+from apse_uav_torch.utils import profiling
 
 RPN_LEVELS_C4 = ("res4",)
 C4_STRIDE = 16
@@ -130,6 +137,7 @@ class MaskRCNNC4(nn.Module):
         map, then res5: res4 (B, H, W, 1024), boxes (B, N, 4) -> (B * N,
         2048, 7, 7) in the backbone's dtype."""
         roi = self.cfg.roi
+        profiling.count("c4.res5_rois", boxes.shape[0] * boxes.shape[1])
         pooled = torch.cat([roi_align_hwc(res4[i], boxes[i], roi.box_pooler_resolution, 1.0 / C4_STRIDE,
                                           roi.pooler_sampling_ratio, aligned=False)
                             for i in range(boxes.shape[0])])
@@ -147,14 +155,16 @@ class MaskRCNNC4(nn.Module):
         detection's own class channel, from res5 rerun on the detection boxes."""
         cfg = self.cfg.roi
         nb, p = boxes.shape[:2]
-        cls_logits, box_deltas = self.box_outputs(self.roi_transform(feats["res4"], boxes), nb, p)
+        with profiling.span("track.res5_box"):
+            cls_logits, box_deltas = self.box_outputs(self.roi_transform(feats["res4"], boxes), nb, p)
         det = box_inference(cls_logits, box_deltas, boxes, valid, image_hw, cfg)
         if self.cfg.mask_on:
             d = det["boxes"].shape[1]
-            logits = self.roi_heads.mask_head(self.roi_transform(feats["res4"], det["boxes"])).float()
-            cls = det["classes"].clamp(0, cfg.num_classes - 1).reshape(nb * d)
-            sel = logits[torch.arange(nb * d, device=logits.device), cls]
-            det["masks"] = torch.sigmoid(sel).reshape(nb, d, *sel.shape[1:])
+            with profiling.span("track.res5_mask"):
+                logits = self.roi_heads.mask_head(self.roi_transform(feats["res4"], det["boxes"])).float()
+                cls = det["classes"].clamp(0, cfg.num_classes - 1).reshape(nb * d)
+                sel = logits[torch.arange(nb * d, device=logits.device), cls]
+                det["masks"] = torch.sigmoid(sel).reshape(nb, d, *sel.shape[1:])
         return det
 
     @torch.no_grad()
