@@ -8,9 +8,12 @@ Counterpart of the JAX reference's ``aruco/pipeline.py``:
   tiles, the candidate stage (with K1).  Single-pass (``two_pass=False``):
   K3 over the whole full-resolution frame, then the detector's pool, K2
   and the candidate stage with K1.  Then per-id slots and
-  unit-length planar pose for both ambiguity basins.  On the CPU the plain
-  versions run and the full-resolution gray covers the whole frame, as the
-  reference's CPU path does.
+  unit-length planar pose for both ambiguity basins: pose's constants are
+  made with the pipeline, so pose makes no host sync, and on a card it is
+  one CUDA graph a call, captured once for each input shape and replayed
+  (counters ``aruco.pose_graph.capture`` and ``aruco.pose_graph.replay``).
+  On the CPU the plain versions run and the full-resolution gray covers the
+  whole frame, as the reference's CPU path does.
 * **scan**: the reference's per-frame state machine (DIFF_MAX gating,
   marker-size rings, altitude fallback, LEDs, distances) as a Python loop
   over frames with the same carry semantics.  It makes no host sync, so on
@@ -33,9 +36,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from apse_uav_torch.aruco import detector as det, geometry as geo, patch_select
+from apse_uav_torch.aruco import detector as det, geometry as geo, patch_select, pose
 from apse_uav_torch.aruco.detector import DetectorParams
-from apse_uav_torch.aruco.pose import estimate_pose_single_markers_two
 from apse_uav_torch.core import camera, rotation
 from apse_uav_torch.device import resolve_device
 from apse_uav_torch.preproc import cuda_pool, cuda_remap, remap, twopass
@@ -146,8 +148,8 @@ def _unpack(flats: list[torch.Tensor], layout: list[tuple]) -> dict:
     return {name: flats[g].narrow(0, offset, shape.numel()).view(shape) for name, g, offset, shape in layout}
 
 
-class _ScanGraph(NamedTuple):
-    """One captured scan: the buffers it reads, the flat buffers it writes
+class _Graph(NamedTuple):
+    """One captured stage: the buffers it reads, the flat buffers it writes
     and their layout."""
 
     graph: torch.cuda.CUDAGraph
@@ -205,7 +207,11 @@ class ArucoPipeline:
         # DCNN CSV columns of the centroids (x, y) and bbox points (x, y) of vehicles 1-3.
         self._centroid_cols = torch.tensor([[5, 6], [9, 10], [13, 14]], device=self.device)
         self._bbox_cols = torch.tensor([[7, 8], [11, 12], [15, 16]], device=self.device)
-        self._graphs: dict[tuple, _ScanGraph] = {}
+        # Pose's constants at unit length, and the inverse of the object square's map by marker count.
+        self._pose_obj = pose.object_points(1.0, self.device)
+        self._pose_mirror = torch.tensor(pose.MIRROR, **f32)
+        self._pose_inverse: dict[int, torch.Tensor] = {}
+        self._graphs: dict[tuple, _Graph] = {}
 
     # -- stateless front ----------------------------------------------------
 
@@ -255,18 +261,32 @@ class ArucoPipeline:
             return self._front_from_detections(gray, corners, ids)
 
     def _front_from_detections(self, gray, corners, ids):
+        """Pose of the detections: on a card one CUDA graph a call, keyed by the inputs' shapes and dtypes."""
         with profiling.span("aruco.pose"):
-            present, slot_corners = _slot_by_id(ids, corners)
-            rvecs, utvecs, rvecs2, utvecs2, perr, perr2, pswap = estimate_pose_single_markers_two(
-                slot_corners, 1.0, self.mtx, self.dist, tilt=self.tilt
-            )
-            cx, cy, msp = geo.marker_center_and_size(slot_corners)
-            msp = torch.clamp(msp, min=1e-6)
+            n = 4 * ids.shape[0]  # four slots a frame
+            if n not in self._pose_inverse:
+                self._pose_inverse[n] = pose.source_inverse(self._pose_obj[:, :2], n)
+            run = lambda inputs: self._pose(*inputs, self._pose_inverse[n])
+            if self.device.type == "cuda":
+                key = tuple((t.shape, t.dtype) for t in (ids, corners))
+                out = self._graphed("pose", key, run, [ids, corners])
+            else:
+                out = run([ids, corners])
+        return {**out, "gray": gray}
+
+    def _pose(self, ids, corners, src_inv):
+        """Slots by id, both basins' unit-length poses, centres and sizes: no host sync."""
+        present, slot_corners = _slot_by_id(ids, corners)
+        rvecs, utvecs, rvecs2, utvecs2, perr, perr2, pswap = pose.estimate_two(
+            slot_corners, self._pose_obj, self.mtx, self.dist, 6, self.tilt, src_inv, self._pose_mirror
+        )
+        cx, cy, msp = geo.marker_center_and_size(slot_corners)
+        msp = torch.clamp(msp, min=1e-6)
         return {
             "present": present, "corners": slot_corners,
             "rvec": rvecs, "utvec": utvecs, "rvec2": rvecs2, "utvec2": utvecs2,
             "perr": perr, "perr2": perr2, "pswap": pswap,
-            "cx": cx, "cy": cy, "msp": msp, "gray": gray,
+            "cx": cx, "cy": cy, "msp": msp,
         }
 
     # -- temporal scan -------------------------------------------------------
@@ -417,32 +437,38 @@ class ArucoPipeline:
         return carry, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def _scan_graph(self, carry: dict, front: dict, firsts: tuple, centroid_rows: torch.Tensor | None):
-        """The scan as a CUDA graph: the inputs copied into the graph's
-        buffers, one replay, and its outputs copied out (a copy a dtype), so
-        that what a call returns stays as it is after the next.  A call with
-        a new key runs the steps on a side stream instead, returns their
-        results and captures the graph."""
+        """The scan as a CUDA graph (:meth:`_graphed`), keyed by the pattern
+        of first frames and the inputs' layout."""
         inputs = [*carry.values(), *front.values()] + ([] if centroid_rows is None else [centroid_rows])
         key = (firsts, tuple((k, v.shape, v.dtype) for k, v in carry.items()),
                tuple((k, v.shape, v.dtype) for k, v in front.items()), centroid_rows is not None)
-        entry = self._graphs.get(key)
+        n_carry, n_front = len(carry), len(front)
+
+        def run(static):
+            c = dict(zip(carry, static[:n_carry]))
+            f = dict(zip(front, static[n_carry:n_carry + n_front]))
+            rows = static[-1] if centroid_rows is not None else torch.zeros(
+                (len(firsts), 17), dtype=torch.int32, device=self.device)
+            new_carry, out = self._scan_eager(c, f, firsts, rows)
+            return {**{("carry", k): v for k, v in new_carry.items()}, **{("out", k): v for k, v in out.items()}}
+
+        return self._split(self._graphed("scan", key, run, inputs))
+
+    def _graphed(self, name: str, key: tuple, run, inputs: list[torch.Tensor]) -> dict:
+        """``run(inputs)`` (tensors by name, no host sync) as a CUDA graph a key:
+        on a key seen before, the inputs copied into the graph's buffers, one
+        replay, and its outputs copied out (a copy a dtype), so that what a call
+        returns stays as it is after the next; on a new key, ``run`` on a side
+        stream, its results returned, and the graph captured.  Counts
+        ``aruco.<name>_graph.replay`` or ``.capture``."""
+        entry = self._graphs.get((name, key))
         if entry is not None:
             torch._foreach_copy_(entry.inputs, inputs)
             entry.graph.replay()
-            profiling.count("aruco.scan_graph.replay")
-            return self._split(_unpack([f.clone() for f in entry.flats], entry.layout))
+            profiling.count(f"aruco.{name}_graph.replay")
+            return _unpack([f.clone() for f in entry.flats], entry.layout)
 
         static = [v.clone() for v in inputs]
-        if centroid_rows is None:
-            static.append(torch.zeros((len(firsts), 17), dtype=torch.int32, device=self.device))
-        n_carry, n_front = len(carry), len(front)
-
-        def run():
-            c = dict(zip(carry, static[:n_carry]))
-            f = dict(zip(front, static[n_carry:n_carry + n_front]))
-            new_carry, out = self._scan_eager(c, f, firsts, static[-1])
-            return _pack({**{("carry", k): v for k, v in new_carry.items()}, **{("out", k): v for k, v in out.items()}})
-
         # PyTorch's rules for a capture: warm up on a side stream, then
         # capture there into the graph's private memory pool.  Not through
         # torch.cuda.graph(), which first synchronizes the device: a host sync.
@@ -451,18 +477,18 @@ class ArucoPipeline:
         side.wait_stream(here)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            flats, layout = run()
+            flats, layout = _pack(run(static))
             graph.capture_begin()
             try:
-                static_flats, _ = run()
+                static_flats, _ = _pack(run(static))
             finally:
                 graph.capture_end()
         here.wait_stream(side)
         for f in flats:
             f.record_stream(here)
-        self._graphs[key] = _ScanGraph(graph, static[:len(inputs)], static_flats, layout)
-        profiling.count("aruco.scan_graph.capture")
-        return self._split(_unpack(flats, layout))
+        self._graphs[(name, key)] = _Graph(graph, static, static_flats, layout)
+        profiling.count(f"aruco.{name}_graph.capture")
+        return _unpack(flats, layout)
 
     @staticmethod
     def _split(named: dict) -> tuple[dict, dict]:

@@ -10,7 +10,12 @@ PyTorch's forward mode promotes the tangent of ``0-d tensor + python float``
 to float64, which breaks the float32 matmuls under ``vmap``.
 
 Linearity: rvec(L) = rvec(1), tvec(L) = L * tvec(1), so the pipeline solves
-with unit marker length once and scales inside the temporal scan.
+with unit marker length once and scales inside the temporal scan.  A caller
+that solves many times (the pipeline) makes pose's constants once
+(:func:`object_points`, :data:`MIRROR`, :func:`source_inverse`) and passes
+them to :func:`estimate_two`, which then makes no host sync: the same float
+operations in the same order as :func:`estimate_pose_single_markers_two`,
+which copies them from the host and checks ``inv``'s error flag every call.
 """
 
 from __future__ import annotations
@@ -21,12 +26,21 @@ from apse_uav_torch.core import camera, rotation
 from apse_uav_torch.utils import profiling
 
 
-def marker_object_points(marker_length: float, device=None) -> torch.Tensor:
-    """OpenCV estimatePoseSingleMarkers object points (y up), (4, 3)."""
+# The mirror of a rotation's first two columns: the homography's pose of a plane behind the camera.
+MIRROR = (-1.0, -1.0, 1.0)
+
+
+def object_points(marker_length: float, device=None) -> torch.Tensor:
+    """OpenCV estimatePoseSingleMarkers object points (y up), (4, 3): a copy from the host."""
     half = marker_length / 2.0
+    return torch.tensor([[-half, half, 0.0], [half, half, 0.0], [half, -half, 0.0], [-half, -half, 0.0]],
+                        dtype=torch.float32, device=device)
+
+
+def marker_object_points(marker_length: float, device=None) -> torch.Tensor:
+    """:func:`object_points` on the path of a solve, counted as the sync it is on the card."""
     with profiling.sync("pose_points"):  # a copy from the host
-        return torch.tensor([[-half, half, 0.0], [half, half, 0.0], [half, -half, 0.0], [-half, -half, 0.0]],
-                            dtype=torch.float32, device=device)
+        return object_points(marker_length, device)
 
 
 def _unit_to_quad(q: torch.Tensor) -> torch.Tensor:
@@ -49,15 +63,21 @@ def _unit_to_quad(q: torch.Tensor) -> torch.Tensor:
     ], -2)
 
 
-def _homography_dlt(src_xy: torch.Tensor, dst_xy: torch.Tensor) -> torch.Tensor:
-    """Exact 4-point homography src -> dst via the projective square map."""
-    with profiling.sync("pose_inverse"):  # inv reads its error flag back
-        return _unit_to_quad(dst_xy) @ torch.linalg.inv(_unit_to_quad(src_xy))
+def source_inverse(obj_xy: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of the map of the unit square onto the object square obj_xy (4, 2), for n markers: (n, 3, 3).
+    ``inv_ex`` without its error check: ``linalg.inv``'s result, with no read of the error flag (a host sync on the
+    card); the map of a square is never singular."""
+    return torch.linalg.inv_ex(_unit_to_quad(obj_xy.expand(n, 4, 2)), check_errors=False)[0]
 
 
-def _init_pose_planar(obj_xy: torch.Tensor, xy_norm: torch.Tensor):
-    """Initial (rvec, tvec) (..., 3) from the homography obj plane -> image."""
-    h_mat = _homography_dlt(obj_xy.expand_as(xy_norm), xy_norm)
+def _init_pose_planar(obj_xy: torch.Tensor, xy_norm: torch.Tensor, src_inv: torch.Tensor | None = None,
+                      mirror: torch.Tensor | None = None):
+    """Initial (rvec, tvec) (..., 3) from the homography obj plane -> image; ``src_inv`` and ``mirror`` as
+    :func:`source_inverse` and :data:`MIRROR` give them, else made here."""
+    if src_inv is None:
+        with profiling.sync("pose_inverse"):  # inv reads its error flag back
+            src_inv = torch.linalg.inv(_unit_to_quad(obj_xy.expand_as(xy_norm)))
+    h_mat = _unit_to_quad(xy_norm) @ src_inv  # the exact 4-point homography via the projective square map
     h_mat = h_mat / torch.linalg.vector_norm(h_mat[..., :, 0], dim=-1)[..., None, None]
     r1, r2 = h_mat[..., :, 0], h_mat[..., :, 1]
     lam = 2.0 / (torch.linalg.vector_norm(r1, dim=-1) + torch.linalg.vector_norm(r2, dim=-1))
@@ -70,8 +90,9 @@ def _init_pose_planar(obj_xy: torch.Tensor, xy_norm: torch.Tensor):
     r_mat = torch.stack([q1, q2, torch.linalg.cross(q1, q2, dim=-1)], dim=-1)
     flip = t[..., 2] < 0
     t = torch.where(flip[..., None], -t, t)
-    with profiling.sync("pose_mirror"):  # a copy from the host
-        mirror = torch.tensor([-1.0, -1.0, 1.0], dtype=r_mat.dtype, device=r_mat.device)
+    if mirror is None:
+        with profiling.sync("pose_mirror"):  # a copy from the host
+            mirror = torch.tensor(MIRROR, dtype=r_mat.dtype, device=r_mat.device)
     r_mat = torch.where(flip[..., None, None], r_mat * mirror, r_mat)
     return rotation.matrix_to_rodrigues(r_mat), t
 
@@ -109,15 +130,17 @@ def _solve_spd6(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _solve_pnp_planar_two(obj_pts: torch.Tensor, img_pts: torch.Tensor, mtx: torch.Tensor, dist14: torch.Tensor,
-                          num_iters: int = 6, tilt: bool = False):
+                          num_iters: int = 6, tilt: bool = False, src_inv: torch.Tensor | None = None,
+                          mirror: torch.Tensor | None = None):
     """Both refined planar-ambiguity poses for img_pts (N, 4, 2).
 
     Returns best (N, 6), other (N, 6), best_err (N,), other_err (N,),
     take_b (N,) -- as the reference's ``_solve_pnp_planar_two``.
+    ``src_inv`` (N, 3, 3) and ``mirror`` (3,): see :func:`_init_pose_planar`.
     """
     n = img_pts.shape[0]
     xy_norm = camera.undistort_points(img_pts, mtx, dist14, num_iters=5, tilt=tilt)
-    rvec0, tvec0 = _init_pose_planar(obj_pts[:, :2], xy_norm)
+    rvec0, tvec0 = _init_pose_planar(obj_pts[:, :2], xy_norm, src_inv, mirror)
 
     def residual(params, target):
         proj = camera.project_points(obj_pts, params[:3], params[3:], mtx, dist14, tilt=tilt)
@@ -201,13 +224,21 @@ def estimate_pose_single_markers_two(corners: torch.Tensor, marker_length: float
                                      dist: torch.Tensor, num_iters: int = 6, tilt: bool | None = None):
     """Both planar-ambiguity basins for corners (..., 4, 2) px:
     (rvec, tvec, rvec_alt, tvec_alt, err, err_alt, swapped), best first."""
-    lead = corners.shape[:-2]
     dist14 = camera.pad_dist_coeffs(dist, device=corners.device)
     if tilt is None:
         tilt = camera.has_tilt(dist14)
-    obj = marker_object_points(marker_length, device=corners.device)
+    return estimate_two(corners, marker_object_points(marker_length, device=corners.device), mtx, dist14, num_iters,
+                        tilt)
+
+
+def estimate_two(corners: torch.Tensor, obj: torch.Tensor, mtx: torch.Tensor, dist14: torch.Tensor,
+                 num_iters: int, tilt: bool, src_inv: torch.Tensor | None = None, mirror: torch.Tensor | None = None):
+    """:func:`estimate_pose_single_markers_two` from the object points obj (4, 3) and the 14-entry dist; with
+    ``src_inv`` (:func:`source_inverse` of obj for the markers' count) and ``mirror`` (:data:`MIRROR` on the
+    corners' device), it makes no host sync."""
+    lead = corners.shape[:-2]
     best, other, err, err2, swapped = _solve_pnp_planar_two(
-        obj, corners.reshape(-1, 4, 2).to(torch.float32), mtx, dist14, num_iters, tilt
+        obj, corners.reshape(-1, 4, 2).to(torch.float32), mtx, dist14, num_iters, tilt, src_inv, mirror
     )
     shape = lambda t: t.reshape(*lead, *t.shape[1:])
     return (shape(best[:, :3]), shape(best[:, 3:]), shape(other[:, :3]), shape(other[:, 3:]),

@@ -403,10 +403,10 @@ def test_aruco_sync_counters_match_the_card(dev, cam, frames, two_pass):
     syncs = _sync_warnings(lambda: pipe.process(frames, carry))
     counted = profiling.counted("sync")
     assert len(syncs) == sum(counted.values()), f"{syncs} {counted}"
-    # All in the front: the scan, captured as a graph in this call, makes none.
-    front_sites = {"dictionary_table", "pose_points", "pose_inverse", "pose_mirror"}
-    front_sites |= {"tile_sizes"} if two_pass else set()
+    # All in the candidate stage: pose, a graph replayed in this call, and the scan, captured in it, make none.
+    front_sites = {"dictionary_table"} | ({"tile_sizes"} if two_pass else set())
     assert set(counted) == front_sites and profiling.counted("aruco.scan_graph") == {"capture": 1}, counted
+    assert profiling.counted("aruco.pose_graph") == {"replay": 1}
 
 
 @pytest.fixture(scope="module")
@@ -485,6 +485,65 @@ def test_aruco_scan_graph_does_not_sync(dev, cam, frames):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert profiling.counted("aruco.scan_graph") == {"capture": 1, "replay": 1}
+
+
+def _front_and_pose_inputs(pipe, frames):
+    """``pipe.front(frames)`` and what its pose stage was given (gray, corners, ids)."""
+    seen = []
+    pose_stage = pipe._front_from_detections
+    pipe._front_from_detections = lambda *a: seen.append(a) or pose_stage(*a)
+    try:
+        return pipe.front(frames), seen[0]
+    finally:
+        del pipe._front_from_detections
+
+
+@pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "single_pass"])
+def test_aruco_pose_graph_matches_the_eager_pose(dev, cam, scan_frames, two_pass):
+    """Pose as a CUDA graph against the eager pose on the card
+    (``estimate_pose_single_markers_two`` at unit length, which copies its
+    constants from the host), every output of ``front`` bit for bit: calls
+    of 4, 4, 4 and 3 frames.  What a call returned reads the same after the
+    later calls; the 4-frame calls capture once and replay twice, the
+    3-frame call captures once more."""
+    from apse_uav_torch.aruco import geometry as geo
+    from apse_uav_torch.aruco.pipeline import _slot_by_id
+    from apse_uav_torch.aruco.pose import estimate_pose_single_markers_two
+
+    pipe = ArucoPipeline(*cam, (W, H), ArucoPipelineConfig(two_pass=two_pass), device="cuda")
+    profiling.reset_counters()
+    kept = []
+    for i, n in enumerate([4, 4, 4, 3]):
+        got, (gray, corners, ids) = _front_and_pose_inputs(pipe, scan_frames[:n])
+        present, slot = _slot_by_id(ids, corners)
+        two = estimate_pose_single_markers_two(slot, 1.0, pipe.mtx, pipe.dist, tilt=pipe.tilt)
+        cx, cy, msp = geo.marker_center_and_size(slot)
+        want = dict(zip(["rvec", "utvec", "rvec2", "utvec2", "perr", "perr2", "pswap"], two), present=present,
+                    corners=slot, cx=cx, cy=cy, msp=torch.clamp(msp, min=1e-6), gray=gray)
+        assert got.keys() == want.keys() and bool(present[:, 0].all())
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), (i, k)
+        for old, snapshot in kept:
+            assert all(torch.equal(old[k], snapshot[k]) for k in snapshot), i
+        kept.append((got, {k: v.clone() for k, v in got.items()}))
+    assert profiling.counted("aruco.pose_graph") == {"capture": 2, "replay": 2}
+
+
+def test_aruco_pose_graph_does_not_sync(dev, cam, frames):
+    """Pose's capture and its replay on a pipeline just built, each under
+    sync-as-error: neither waits for the card."""
+    _, (gray, corners, ids) = _front_and_pose_inputs(ArucoPipeline(*cam, (W, H), device="cuda"), frames)
+    pipe = ArucoPipeline(*cam, (W, H), device="cuda")
+    profiling.reset_counters()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pipe._front_from_detections(gray, corners, ids)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert profiling.counted("aruco.pose_graph") == {"capture": 1, "replay": 1}
+    assert not profiling.counted("sync")
 
 
 def test_bf16_maps_near_float32_and_cpu(dev):

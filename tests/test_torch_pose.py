@@ -65,3 +65,44 @@ def test_pose_two_basins_match_jax(cam):
     assert np.isfinite(err).all()
     np.testing.assert_allclose(err, want[4], rtol=0.05, atol=1e-3)
 
+
+
+def test_pipeline_pose_constants_match_the_eager_pose(cam):
+    """``ArucoPipeline``'s pose, with the object points, the mirror and the
+    source square's inverse made once by the pipeline, against
+    ``estimate_pose_single_markers_two`` called alone (which copies them from
+    the host and checks ``inv``'s error flag): every output bit for bit, on 2
+    frames of 5 detection slots (an id seen twice, one absent, a crossed quad
+    that takes the mirror).  The pipeline's path counts no pose sync, also on its
+    second call; the eager one counts each of its three."""
+    from apse_uav_torch.aruco import geometry as geo
+    from apse_uav_torch.aruco.pipeline import ArucoPipeline, _slot_by_id
+    from apse_uav_torch.utils import profiling
+
+    w, h = 960, 544
+    mtx = cam[0] * np.array([[w / 3840, 1, w / 3840], [1, h / 2160, h / 2160], [1, 1, 1]], np.float32)
+    pipe = ArucoPipeline(mtx, cam[1], (w, h), device="cpu")
+    rng = np.random.default_rng(11)
+    obj = tpose.object_points(1.0)
+    corners = torch.zeros((2, 5, 4, 2))
+    for b in range(2):
+        for k in range(5):
+            rvec = torch.tensor([*rng.normal(scale=0.3, size=2), rng.uniform(-np.pi, np.pi)], dtype=torch.float32)
+            tvec = torch.tensor([*rng.uniform(-2, 2, size=2), rng.uniform(4, 12)], dtype=torch.float32)
+            corners[b, k] = tcam.project_points(obj, rvec, tvec, pipe.mtx, pipe.dist) + torch.from_numpy(
+                rng.normal(scale=0.05, size=(4, 2)).astype(np.float32))
+    corners[1, 4] = corners[1, 4, [0, 1, 3, 2]]  # crossed: its homography puts the plane behind the camera
+    ids = torch.tensor([[4, 1, 2, 1, 9], [3, -1, 4, 2, 1]])
+    profiling.reset_counters()
+    for _ in range(2):
+        got = pipe._front_from_detections(None, corners, ids)
+    assert not {"pose_points", "pose_inverse", "pose_mirror"} & set(profiling.counted("sync"))
+    present, slot = _slot_by_id(ids, corners)
+    two = tpose.estimate_pose_single_markers_two(slot, 1.0, pipe.mtx, pipe.dist, tilt=pipe.tilt)
+    cx, cy, msp = geo.marker_center_and_size(slot)
+    want = dict(zip(["rvec", "utvec", "rvec2", "utvec2", "perr", "perr2", "pswap"], two),
+                present=present, corners=slot, cx=cx, cy=cy, msp=torch.clamp(msp, min=1e-6), gray=None)
+    assert profiling.counted("sync") == dict.fromkeys(("pose_points", "pose_inverse", "pose_mirror"), 1)
+    assert got.keys() == want.keys() and got["present"].sum() == 7
+    for k, v in want.items():
+        assert v is None and got[k] is None or got[k].dtype == v.dtype and torch.equal(got[k], v), k
