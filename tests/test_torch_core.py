@@ -5,6 +5,7 @@ Inputs are made with numpy from fixed seeds and handed to both packages.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -236,3 +237,53 @@ def test_convert_configs_and_camera_from_jax(cam):
         if k not in ("pallas_proposals", "pallas_interpret", "pallas_labeling")}
     with pytest.raises(ValueError, match="no field"):
         convert.pipeline_config({**dataclasses.asdict(JConfig()), "new_option": 1})
+
+
+def _threads_in_a_worker(workers, libraries: bool = False):
+    """A fresh interpreter that imports numpy (as jaxtyping's pytest plugin
+    does), then runs the root conftest.py as an xdist worker of ``workers``
+    (None: no xdist): the variables the conftest changed and a child
+    process's OMP_NUM_THREADS; with ``libraries``, then torch's and cv2's
+    threads and each BLAS and OpenMP pool's."""
+    code = (
+        "import json, os, runpy, subprocess, sys\n"
+        "import numpy\n"
+        "before = dict(os.environ)\n"
+        "runpy.run_path(os.path.join(sys.argv[1], 'conftest.py'))\n"
+        "got = {'changed': {k: os.environ.get(k) for k in {*before, *os.environ} if before.get(k) != os.environ.get(k)}}\n"
+        "got['changed'].pop('KMP_DUPLICATE_LIB_OK', None)  # set by threadpoolctl's import\n"
+        "got['child'] = subprocess.run([sys.executable, '-c', 'import os; print(os.environ.get(\"OMP_NUM_THREADS\"))'],\n"
+        "                              capture_output=True, text=True, check=True).stdout.strip()\n"
+        "if sys.argv[2] == 'True':\n"
+        "    import cv2, torch\n"
+        "    from threadpoolctl import threadpool_info\n"
+        "    got.update(torch=torch.get_num_threads(), cv2=cv2.getNumThreads(),\n"
+        "               pools=sorted({p['num_threads'] for p in threadpool_info()}))\n"
+        "print(json.dumps(got))\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OMP_NUM_THREADS", "OPENCV_FOR_THREADS_NUM") and not k.startswith("PYTEST_XDIST")}
+    if workers:
+        env["PYTEST_XDIST_WORKER_COUNT"] = str(workers)
+    res = subprocess.run([sys.executable, "-c", code, REPO, str(libraries)], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout)
+
+
+def test_xdist_workers_share_the_cores():
+    """Under xdist each worker's torch, BLAS, OpenMP and OpenCV pools and its
+    child processes get max(1, cores // workers) threads, set once by the
+    root conftest.py; without xdist it leaves the environment as it was."""
+    if "PYTEST_XDIST_WORKER_COUNT" in os.environ:  # this run: whatever budget it set, every pool took it
+        budget = int(os.environ["OMP_NUM_THREADS"])
+        child = subprocess.run([sys.executable, "-c", "import os; print(os.environ['OMP_NUM_THREADS'])"],
+                               capture_output=True, text=True, check=True).stdout.strip()
+        assert torch.get_num_threads() == budget and child == str(budget)
+    cores = len(os.sched_getaffinity(0))
+    budget = max(1, cores // 6)
+    want = {"changed": {"OMP_NUM_THREADS": str(budget), "OPENCV_FOR_THREADS_NUM": str(budget)}, "child": str(budget)}
+    assert _threads_in_a_worker(6, libraries=True) == {**want, "torch": budget, "cv2": budget, "pools": [budget]}
+    assert _threads_in_a_worker(cores + 1) == {"changed": {"OMP_NUM_THREADS": "1", "OPENCV_FOR_THREADS_NUM": "1"},
+                                               "child": "1"}
+    assert _threads_in_a_worker(None) == {"changed": {}, "child": "None"}

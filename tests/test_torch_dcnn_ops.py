@@ -1,7 +1,7 @@
 """PyTorch port, DCNN ops: box math, exact NMS, ROIAlign, the flat
-multi-level ROIAlign, the gated auction, the exact Jonker-Volgenant solver,
+multi-level ROIAlign, the cost padding, the exact Jonker-Volgenant solver,
 the eps-scaled auction and the fixed-point loop, against the JAX package
-(and scipy) on the CPU.
+(and scipy) on the CPU (the gated auction: test_torch_auction.py).
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
 Discrete outputs (keep masks, assignments) must be identical; float outputs
@@ -21,6 +21,8 @@ from apse_uav_tpu.dcnn.ops.roi_align import roi_align_hwc as j_roi_align_hwc
 from apse_uav_torch.dcnn import hungarian as thung
 from apse_uav_torch.dcnn.models import roi_heads as trh
 from apse_uav_torch.dcnn.ops import boxes as tboxes, loops, nms as tnms, roi_align as troi
+
+import torch_parity
 
 
 def _boxes(rng, n, size=100.0, dup=0):
@@ -155,35 +157,9 @@ def test_fpn_roi_align_matches_jax_and_dense_oracle(ratio):
     np.testing.assert_array_equal(trh.assign_boxes_to_levels(torch.from_numpy(boxes)).numpy(), want_lvl)
 
 
-def _cost_case(kind, rng, r=12, c=10):
-    cost = rng.uniform(0, 1.2, (r, c)).astype(np.float32)
-    rv, cv = np.ones(r, bool), np.ones(c, bool)
-    if kind == "ties":
-        cost = np.round(cost * 3) / 3  # exact ties between columns and rows
-    if kind == "invalid":
-        rv[rng.uniform(size=r) < 0.3] = False
-        cv[rng.uniform(size=c) < 0.3] = False
-    if kind == "contested":  # every row prefers the same few columns
-        cost = (rng.uniform(0, 0.05, (r, c)) + np.arange(c)[None, :] * 0.1).astype(np.float32)
-    return cost, rv, cv
-
-
-@pytest.mark.parametrize("kind", ["random", "ties", "invalid", "contested"])
-def test_gated_auction_identical(kind):
-    """Identical assignments on random costs, exact ties, invalid rows and
-    columns and crowded columns, at two thresholds."""
-    rng = np.random.default_rng(5)
-    for _ in range(4):
-        cost, rv, cv = _cost_case(kind, rng)
-        for thr in (0.6, 2.0):
-            want = np.asarray(jhung.gated_auction_match(jnp.asarray(cost), jnp.asarray(rv), jnp.asarray(cv), thr))
-            got = thung.gated_auction_match(torch.from_numpy(cost), torch.from_numpy(rv), torch.from_numpy(cv), thr)
-            np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{kind} thr {thr}")
-
-
 def test_pad_cost_matches_jax():
     rng = np.random.default_rng(6)
-    cost, rv, cv = _cost_case("invalid", rng)
+    cost, rv, cv = torch_parity.cost_case("invalid", rng)
     cost[0, 0] = np.inf
     np.testing.assert_array_equal(
         thung.pad_cost(torch.from_numpy(cost), torch.from_numpy(rv), torch.from_numpy(cv)).numpy(),

@@ -193,15 +193,21 @@ def test_slice_on_reference_gray(cam, sequence, jax_run):
     ms, dist = cam
     jpipe, jfront, want = jax_run
     st = jpipe.detector.params.proposal_stride
-    pooled_src = jtwopass.pool_source_u8(jnp.asarray(sequence), st, jpipe._pooled_hw)
-    _, pooled_gray = jpipe.pre_pooled(jnp.transpose(pooled_src, (0, 2, 3, 1)))
-    jpool = np.asarray(pooled_gray)[:, : H // st, : W // st].astype(np.float32)
+
+    @jax.jit
+    def reference_pool_and_proposals(frames):
+        pooled_src = jtwopass.pool_source_u8(frames, st, jpipe._pooled_hw)
+        _, pooled_gray = jpipe.pre_pooled(jnp.transpose(pooled_src, (0, 2, 3, 1)))
+        pool = pooled_gray[:, : H // st, : W // st].astype(jnp.float32)
+        return pool, jax.vmap(lambda a: jproposals(a, H, W, jpipe.detector.params))(pool)
+
+    jpool, jprops = reference_pool_and_proposals(jnp.asarray(sequence))
+    jpool, jprops = np.asarray(jpool), [np.asarray(x) for x in jprops]
     gray = np.asarray(jfront["gray"])
 
     pipe = ArucoPipeline(ms, dist, (W, H), ArucoPipelineConfig(), device="cpu")
     p = pipe.params
     props = cuda_proposals.proposals_from_pool(torch.from_numpy(jpool), H, W, p)
-    jprops = [np.asarray(x) for x in jax.vmap(lambda a: jproposals(a, H, W, jpipe.detector.params))(jnp.asarray(jpool))]
     k = p.per_scale_k
     for t in range(len(sequence)):
         for a in range(0, jprops[0].shape[1], k):
@@ -255,12 +261,15 @@ def test_reference_moves_marker_2_under_one_gray_level(jax_run, port_run):
     from apse_uav_tpu.aruco.detector import ArucoDetector
     from apse_uav_tpu.aruco.pipeline import _slot_by_id
 
-    def slots(gray):
-        corners, ids = ArucoDetector().detect(jnp.asarray(gray))
-        return np.asarray(jax.vmap(_slot_by_id)(ids, corners)[1])
+    detector = ArucoDetector()
 
-    own = slots(np.asarray(jax_run[1]["gray"]))
-    fed = slots(port_run[2])
+    @jax.jit
+    def slots(gray):  # one trace and compile for both grays
+        corners, ids = detector.detect(gray)
+        return jax.vmap(_slot_by_id)(ids, corners)[1]
+
+    own = np.asarray(slots(jnp.asarray(jax_run[1]["gray"])))
+    fed = np.asarray(slots(jnp.asarray(port_run[2])))
     err = np.abs(own - fed).max(axis=(2, 3))  # (T, 4)
     assert err[:, 1].max() > 1.0, err
     assert err[:, [0, 2, 3]].max() <= 0.05, err

@@ -11,7 +11,8 @@ let a test hold the continuous part (coarse corners) and the discontinuous
 part (refinement from one and the same start) each to a tight tolerance.
 
 The DCNN helpers at the end build the small Mask R-CNN that the DCNN parity
-tests share and load one detectron2-format checkpoint into both packages.
+tests share and load one detectron2-format checkpoint into both packages;
+``cost_case`` makes gated-auction problems.
 """
 
 from __future__ import annotations
@@ -183,3 +184,22 @@ def jax_c4(cfg, checkpoint: dict):
     params, missing, unused = W.load_into_params(abstract, flat)
     assert not missing and not unused, (missing[:3], unused[:3])
     return model, params
+
+
+COST_CASES = ("random", "ties", "invalid", "contested")
+
+
+def cost_case(kind: str, rng, r: int = 12, c: int = 10):
+    """A gated-auction problem (cost (r, c), row_valid, col_valid) of one of
+    COST_CASES: random costs, exact ties (float64), invalid rows and columns,
+    crowded columns."""
+    cost = rng.uniform(0, 1.2, (r, c)).astype(np.float32)
+    rv, cv = np.ones(r, bool), np.ones(c, bool)
+    if kind == "ties":
+        cost = np.round(cost * 3) / 3  # exact ties between columns and rows
+    if kind == "invalid":
+        rv[rng.uniform(size=r) < 0.3] = False
+        cv[rng.uniform(size=c) < 0.3] = False
+    if kind == "contested":  # every row prefers the same few columns
+        cost = (rng.uniform(0, 0.05, (r, c)) + np.arange(c)[None, :] * 0.1).astype(np.float32)
+    return cost, rv, cv
