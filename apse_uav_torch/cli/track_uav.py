@@ -169,24 +169,100 @@ def build_tracker(args, orig_hw: tuple[int, int], cfg=None):
     return tracker, pre
 
 
+class UploadRing:
+    """Page-locked host buffers, used in turn, through which batches of
+    frames reach the card.
+
+    :meth:`stage` copies a batch's frames (numpy arrays of one shape and
+    dtype, at most ``batch`` of them) into the next slot, a ``(batch, *frame
+    shape)`` buffer, and returns the slot's number and its first
+    ``len(frames)`` rows.  The slots are allocated at the first batch and
+    again only when the frames' shape or dtype changes; torch's CPU copy
+    fills them with its intra-op threads, and their pages are already
+    resident.  :meth:`upload` copies the staged rows into a fresh tensor on
+    the card without blocking the host and records an event after the copy:
+    a slot is refilled only once its event has passed, and a wait there
+    counts as ``sync.upload_slot``.  ``pin=False`` keeps the slots in
+    pageable memory, for :meth:`stage` alone.
+    """
+
+    SLOTS = 2  # one filled while the other's copy may still be queued
+
+    def __init__(self, batch: int, pin: bool = True):
+        self.batch, self.pin = batch, pin
+        self.buffers: list = []
+        self.events: list = [None] * self.SLOTS  # each slot's last copy to the card, while it may be pending
+        self.turn = 0  # the slot that stage() fills next
+
+    def stage(self, frames):
+        """Copy ``frames`` into the next slot; returns (slot number, its
+        first ``len(frames)`` rows)."""
+        import torch
+
+        from apse_uav_torch.utils import profiling
+
+        if not 0 < len(frames) <= self.batch:
+            raise ValueError(f"{len(frames)} frames for slots of {self.batch}")
+        src = [torch.from_numpy(f) for f in frames]
+        shape = (self.batch, *src[0].shape)
+        if not self.buffers or self.buffers[0].shape != shape or self.buffers[0].dtype != src[0].dtype:
+            # A copy still reading an old slot keeps its memory: the caching
+            # host allocator hands a block out again only after its copies.
+            self.buffers = [torch.empty(shape, dtype=src[0].dtype, pin_memory=self.pin) for _ in range(self.SLOTS)]
+            self.events = [None] * self.SLOTS
+        i = self.turn
+        self.turn = (i + 1) % self.SLOTS
+        event, self.events[i] = self.events[i], None
+        if event is not None and not event.query():
+            with profiling.sync("upload_slot"):
+                event.synchronize()
+        rows = self.buffers[i][:len(src)]
+        for row, f in zip(rows, src):
+            row.copy_(f)
+        return i, rows
+
+    def upload(self, frames, device):
+        """``frames`` staged and copied to a fresh (n, *frame shape) tensor on
+        ``device``, a card; the copy queues behind the work before it on
+        the current stream, and the host goes on."""
+        import torch
+
+        i, rows = self.stage(frames)
+        x = torch.empty(rows.shape, dtype=rows.dtype, device=device)
+        x.copy_(rows, non_blocking=True)
+        self.events[i] = torch.cuda.Event()
+        self.events[i].record(torch.cuda.current_stream(device))
+        return x
+
+
 def track_frames(tracker, pre, frames, batch: int):
     """Track ``frames``, an iterable of (idx, (H, W, 3) u8 BGR numpy frame),
     in batches of ``batch`` frames through ``pre`` (or none) and
     ``tracker``.  One batch deep: batch N+1 is dispatched before the host
-    takes batch N's snapshots.  Yields (idx, frame, snapshot as numpy) for
+    takes batch N's snapshots.  On a card each batch goes up through an
+    the :class:`UploadRing` (counted as ``track.upload_pinned``);
+    on the CPU it is stacked.  Yields (idx, frame, snapshot as numpy) for
     every frame, in order."""
     import torch
 
     from apse_uav_torch.utils import profiling
 
+    ring = UploadRing(batch) if torch.device(tracker.device).type == "cuda" else None
+
     def dispatch(chunk):
         """Enqueue preprocess + detect + associate for a batch."""
         batch = getattr(tracker, "dispatched", 0) + 1  # the number the tracker gives this dispatch
         with profiling.span("track.upload", batch):
-            x = torch.from_numpy(np.stack([f for _, f in chunk]))
-            # A pageable copy: the host waits for the work queued before it.
-            with profiling.sync("upload"):
-                x = x.to(tracker.device)
+            if ring is not None:
+                # A copy from page-locked memory: it waits on the card for the
+                # work queued before it, and the host goes on to dispatch the batch.
+                x = ring.upload([f for _, f in chunk], tracker.device)
+                profiling.count("track.upload_pinned")
+            else:
+                x = torch.from_numpy(np.stack([f for _, f in chunk]))
+                # On the CPU the stacked frames are already where the tracker reads them.
+                with profiling.sync("upload"):
+                    x = x.to(tracker.device)
         if pre is not None:
             # Stays on the device: the predictor reads it there.
             with profiling.span("track.preprocess", batch):

@@ -12,7 +12,8 @@ twice:
    matched by correlation id) is set against the spans open at it, and each
    idle gap of the card against the spans open across its middle;
 2. spans on, the profiler off: each span's host time, self time and wait in
-   ``sync.*`` spans, and the ``sync.*`` counters.
+   ``sync.*`` spans, the ``sync.*`` counters, and the batches that went up
+   through the tracker's pinned ring (``track.upload_pinned``).
 
 Prints one JSON line: the numbers a frame by span name, the per-layer
 numbers PERF.md names for the benchmark (``metrics``), the idle gaps by span, the
@@ -253,6 +254,7 @@ def main(argv=None) -> int:
 
     profiling.reset_spans()
     before = profiling.counted("sync")
+    pinned = profiling.counters.get("track.upload_pinned", 0)
     profiling.enable_spans(True)
     t0 = time.perf_counter()
     loop(20, n)
@@ -262,6 +264,7 @@ def main(argv=None) -> int:
     syncs = {k: v - before.get(k, 0) for k, v in profiling.counted("sync").items() if v - before.get(k, 0)}
     out = {"workload": cell.name, "seed": args.seed, "frames": n * b, "card": chip.power_limit(),
            "spans_stretch_s": stretch_s, **report(profiling.spans(), syncs, n * b),
+           "pinned_uploads_per_batch": (profiling.counters.get("track.upload_pinned", 0) - pinned) / n,
            "launches_per_frame_by_span": launches, "launch_routes": how, "idle": idle}
     profiling.reset_spans()
     print(json.dumps(out), flush=True)

@@ -374,7 +374,8 @@ def _sync_warnings(fn) -> list:
 def test_tracker_sync_counters_match_the_card(dev, batch):
     """One batch of ``track_uav.track_frames`` (upload, ``Preprocessor``,
     dispatch, materialize) at batch 4 and 1: the ``sync.*`` counters equal
-    the host syncs the card reports, so every one is counted at its site."""
+    the host syncs the card reports, so every one is counted at its site.
+    The upload goes through the pinned ring and makes none."""
     from apse_uav_torch.cli.track_uav import track_frames
     from apse_uav_torch.preproc.remap import Preprocessor
 
@@ -389,7 +390,68 @@ def test_tracker_sync_counters_match_the_card(dev, batch):
                                                      batch)))
     counted = profiling.counted("sync")
     assert len(syncs) == sum(counted.values()), f"{syncs} {counted}"
-    assert counted["upload"] == 1 and counted["nms_converge"] > 0 and counted["materialize"] > 0
+    assert "upload" not in counted and "upload_slot" not in counted, counted
+    assert profiling.counters["track.upload_pinned"] == 1
+    assert counted["nms_converge"] > 0 and counted["materialize"] > 0
+
+
+def test_track_frames_ring_matches_a_plain_upload(dev):
+    """Eleven distinct frames in batches of 3 (3, 3, 3, 2: the ring's two
+    slots each filled twice, the last time with a short batch) through
+    ``track_frames``: the preprocessed frames and the snapshots are bit for bit
+    those of a plain ``.to(device)`` upload of each batch into a second
+    tracker; one ``track.upload_pinned`` a batch and no upload sync."""
+    from apse_uav_torch.cli.track_uav import track_frames
+    from apse_uav_torch.preproc.remap import Preprocessor
+
+    mtx, dist = camera.load_camera_params(os.path.join(REPO, "data", "cam_params.json"))
+    pre = Preprocessor(mtx * np.array([[160 / 3840, 1, 160 / 3840], [1, 100 / 2160, 100 / 2160], [1, 1, 1]]), dist,
+                       (160, 100), device=dev)
+    frames = list(np.random.default_rng(4).integers(0, 255, (11, 100, 160, 3), np.uint8))
+    seen = []
+
+    def pre_seen(x, with_gray=True):
+        out = pre(x, with_gray)
+        seen.append(out[0].clone())
+        return out
+
+    profiling.reset_counters()
+    got = list(track_frames(_tiny_tracker("cuda"), pre_seen, enumerate(frames), 3))
+    assert profiling.counters["track.upload_pinned"] == 4 and not {"upload", "upload_slot"} & set(
+        profiling.counted("sync")), profiling.counters
+    plain = _tiny_tracker("cuda")
+    assert [i for i, _, _ in got] == list(range(11)) and [x.shape[0] for x in seen] == [3, 3, 3, 2]
+    for k, mine in enumerate(seen):
+        rgb, _ = pre(torch.from_numpy(np.stack(frames[3 * k:3 * k + 3])).to(dev), with_gray=False)
+        assert torch.equal(mine, rgb), k
+        snaps = plain.process_frames(rgb)
+        for b in range(rgb.shape[0]):
+            _, _, snap = got[3 * k + b]
+            assert snap.keys() == snaps.keys()
+            for key, v in snaps.items():
+                np.testing.assert_array_equal(snap[key], v[b], err_msg=f"batch {k} frame {b} {key}")
+
+
+def test_upload_ring_refills_a_slot_only_after_its_copy(dev):
+    """Behind 50 ms or more of device sleep, three batches through a ring of two
+    page-locked slots: the first two uploads return with their copies still
+    queued (the host is not held), the third waits for the first slot's copy
+    (one ``sync.upload_slot``), and every batch reaches the card intact."""
+    from apse_uav_torch.cli.track_uav import UploadRing
+
+    ring = UploadRing(2)
+    batches = [list(np.random.default_rng(5 + k).integers(0, 255, (2, 64, 96, 3), np.uint8)) for k in range(3)]
+    ring.upload(batches[0], dev)  # allocates the slots
+    torch.cuda.synchronize()
+    assert all(buf.is_pinned() for buf in ring.buffers)
+    profiling.reset_counters()
+    torch.cuda._sleep(100_000_000)  # cycles: 50 ms at the H100's 1.98 GHz boost, longer below it
+    ups = [ring.upload(batches[k], dev) for k in range(2)]
+    assert not ring.events[1].query() and not ring.events[0].query()  # both copies still behind the sleep
+    ups.append(ring.upload(batches[2], dev))
+    assert profiling.counted("sync") == {"upload_slot": 1}
+    for up, frames in zip(ups, batches):
+        np.testing.assert_array_equal(up.cpu().numpy(), np.stack(frames))
 
 
 @pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "single_pass"])
