@@ -6,7 +6,9 @@ mask centroids and closest-points-to-host into the 17-column CSV that the
 ArUco pipeline reads, and optionally writes visualised frames; plus
 ``--device cuda|cpu`` (``cuda`` raises when no card is visible, never falls
 back) and ``--arch c4``, which runs Mask R-CNN R-C4 (res5 as the ROI head;
-the re-ID embeddings read its res2) where the reference runs R-FPN.  With
+the re-ID embeddings read its res2) where the reference runs R-FPN, and
+``--resnext 32x8d``, which runs Mask R-CNN X101-32x8d-FPN (the R-FPN
+tracker on a ResNeXt trunk: 32 groups in every bottleneck's 3x3).  With
 ``--preprocess`` the port's ``Preprocessor`` (kernel K3's RGB mode on the
 card) undistorts and gamma-corrects each batch, which stays on the device.
 TF32 is switched off, so the float32 model runs in float32; ``--bf16`` runs the backbone and heads in bfloat16 with float32 parameters,
@@ -23,7 +25,7 @@ beside the kernels, to ``DIR/trace.json``.
 Usage:
     python -m apse_uav_torch.cli.track_uav --video seq.mp4 \
         --weights model_final.pkl --num_classes 4 --host_id 4 \
-        --log_file dcnn_data.csv [--write_images out/ --preprocess cam.json] [--arch c4]
+        --log_file dcnn_data.csv [--write_images out/ --preprocess cam.json] [--arch c4 | --resnext 32x8d]
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth", type=int, default=101, choices=(50, 101))
     p.add_argument("--arch", default="fpn", choices=("fpn", "c4"),
                    help="fpn (mask_rcnn_R_{50,101}_FPN_3x) or c4 (mask_rcnn_R_{50,101}_C4_3x: res5 as the ROI head)")
+    p.add_argument("--resnext", default=None, choices=("32x8d",),
+                   help="a ResNeXt trunk: 32x8d = mask_rcnn_X_101_32x8d_FPN_3x (with --arch fpn --depth 101)")
     p.add_argument("--num_classes", type=int, default=4)
     p.add_argument("--confidence", type=float, default=0.5)
     p.add_argument("--host_id", type=int, default=4, help="host (Ford) track id for closest points")
@@ -99,12 +103,20 @@ def _frames(args):
 def model_config(args):
     """The ModelConfig the flags ask for, by the reference CLIs' rules:
     ``--depth`` (26, 50 or 101), ``--num_classes``, ``--confidence`` and,
-    where the CLI has them, ``--arch`` (R-FPN without it), ``--bf16`` and
+    where the CLI has them, ``--arch`` (R-FPN without it), ``--resnext``
+    (X101-32x8d-FPN, only with R-FPN at depth 101), ``--bf16`` and
     ``--no_mask``."""
     from apse_uav_torch.dcnn import config as C
 
-    r50, r101 = {"fpn": (C.mask_rcnn_r50_fpn, C.mask_rcnn_r101_fpn),
-                 "c4": (C.mask_rcnn_r50_c4, C.mask_rcnn_r101_c4)}[getattr(args, "arch", "fpn")]
+    arch = getattr(args, "arch", "fpn")
+    if getattr(args, "resnext", None):
+        if arch != "fpn" or args.depth != 101:
+            raise SystemExit(f"--resnext {args.resnext} needs --arch fpn --depth 101 "
+                             f"(mask_rcnn_X_101_32x8d_FPN_3x), not --arch {arch} --depth {args.depth}")
+        r50 = r101 = C.mask_rcnn_x101_32x8d_fpn
+    else:
+        r50, r101 = {"fpn": (C.mask_rcnn_r50_fpn, C.mask_rcnn_r101_fpn),
+                     "c4": (C.mask_rcnn_r50_c4, C.mask_rcnn_r101_c4)}[arch]
     cfg = (r101 if args.depth == 101 else r50)(num_classes=args.num_classes)
     if args.depth == 26:
         cfg = dataclasses.replace(cfg, depth=26)

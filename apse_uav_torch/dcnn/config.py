@@ -3,9 +3,11 @@
 The port's own copy of the JAX reference's ``dcnn/config.py``: the same
 frozen dataclasses, fields, defaults and presets, so a configuration built in
 either package reads the same.  Presets mirror the reference's detectron2
-YAML configs (Base-RCNN-FPN.yaml and its R50/R101 variants).  Configurations
-carry across packages through ``apse_uav_torch.convert.model_config`` and
-``tracker_config`` (``dataclasses.asdict`` of the JAX ones).
+YAML configs (Base-RCNN-FPN.yaml and its R50/R101 variants).  The port adds
+the ResNeXt fields and the X101-32x8d-FPN preset, which the reference lacks;
+their defaults are a plain ResNet's.  Configurations carry across packages
+through ``apse_uav_torch.convert.model_config`` and ``tracker_config``
+(``dataclasses.asdict`` of the JAX ones).
 """
 
 from __future__ import annotations
@@ -97,6 +99,11 @@ class ModelConfig:
     depth: int = 50  # ResNet depth: 50 or 101
     mask_on: bool = True
     stride_in_1x1: bool = True  # caffe-style bottlenecks (model-zoo weights)
+    # ResNeXt (detectron2 RESNETS.NUM_GROUPS, WIDTH_PER_GROUP): each
+    # bottleneck's 3x3 convolution in num_groups groups, the bottleneck
+    # num_groups * width_per_group * 2**stage wide.  1 and 64: plain ResNet.
+    num_groups: int = 1
+    width_per_group: int = 64
     # "fpn" (Base-RCNN-FPN.yaml) or "c4" (Base-RCNN-C4.yaml: res4 backbone,
     # single-level RPN, res5 ROI head).  models.build_model dispatches.
     architecture: str = "fpn"
@@ -131,6 +138,15 @@ def mask_rcnn_r101_fpn(num_classes: int = 80, **overrides) -> ModelConfig:
     """mask_rcnn_R_101_FPN_3x.yaml equivalent."""
     cfg = ModelConfig(depth=101)
     cfg = dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, num_classes=num_classes))
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def mask_rcnn_x101_32x8d_fpn(num_classes: int = 80, **overrides) -> ModelConfig:
+    """mask_rcnn_X_101_32x8d_FPN_3x.yaml equivalent: R101-FPN with 32 groups
+    of 8 channels in res2's 3x3 (256 wide, 2048 in res5), the stride on the
+    3x3 (a C2 model) and the ImageNet pixel std of the FAIR weights."""
+    cfg = mask_rcnn_r101_fpn(num_classes, stride_in_1x1=False, num_groups=32, width_per_group=8)
+    cfg = dataclasses.replace(cfg, input=dataclasses.replace(cfg.input, pixel_std=(57.375, 57.120, 58.395)))
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 

@@ -265,7 +265,9 @@ def _flax_params(cfg) -> list[tuple[str, tuple[int, ...], str]]:
     """The JAX MaskRCNN's (or, for a C4 config, MaskRCNNC4's) parameters of
     ``cfg`` in the order of their scopes: ('/'-joined flax path, shape in
     flax layout, initialiser), the initialiser ``lecun``, ``normal:<stddev>``,
-    ``zeros`` or ``ones``."""
+    ``zeros`` or ``ones``.  A ResNeXt config (which the JAX package lacks)
+    gets grouped conv2 kernels, (3, 3, width / groups, width), drawn as flax
+    draws a convolution with ``feature_group_count``."""
     from apse_uav_torch.dcnn.models.resnet import STAGE_BLOCKS
 
     out = []
@@ -280,12 +282,15 @@ def _flax_params(cfg) -> list[tuple[str, tuple[int, ...], str]]:
                     (f"{path}/mean", (ch,), "zeros"), (f"{path}/var", (ch,), "ones")])
 
     def stage(prefix, s):
-        out_ch, mid = 256 * 2**s, 64 * 2**s
+        out_ch, mid = 256 * 2**s, cfg.num_groups * cfg.width_per_group * 2**s
         in_ch = 64 if s == 0 else out_ch // 2
         for b in range(STAGE_BLOCKS[cfg.depth][s]):
             p = f"{prefix}/res{s + 2}_{b}"
             cin = in_ch if b == 0 else out_ch
-            for i, (k, ci, co) in enumerate(((1, cin, mid), (3, mid, mid), (1, mid, out_ch)), start=1):
+            # A grouped 3x3 (ResNeXt) holds mid / groups inputs per output, as
+            # flax's feature_group_count kernel; its LeCun fan-in is that times 9.
+            convs = ((1, cin, mid), (3, mid // cfg.num_groups, mid), (1, mid, out_ch))
+            for i, (k, ci, co) in enumerate(convs, start=1):
                 conv(f"{p}/conv{i}", k, ci, co, bias=False)
                 bn(f"{p}/bn{i}", co)
             if b == 0:

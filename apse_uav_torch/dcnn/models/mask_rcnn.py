@@ -46,9 +46,14 @@ RPN_LEVELS = ("p2", "p3", "p4", "p5", "p6")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on a ModelConfig the port does not run: an unknown architecture or compute dtype."""
+    """Raise on a ModelConfig the port does not run: an unknown architecture
+    or compute dtype, or a grouped (ResNeXt) C4, which detectron2's zoo does
+    not have."""
     if cfg.architecture not in ("fpn", "c4"):
         raise ValueError(f"architecture={cfg.architecture!r}: use 'fpn' or 'c4'")
+    if cfg.architecture == "c4" and (cfg.num_groups, cfg.width_per_group) != (1, 64):
+        raise ValueError(f"num_groups={cfg.num_groups}, width_per_group={cfg.width_per_group} with "
+                         "architecture='c4': ResNeXt bottlenecks run only in 'fpn'")
     for field in ("compute_dtype", "head_compute_dtype"):
         if getattr(cfg, field) not in ("float32", "bfloat16", ""):
             raise ValueError(f"{field}={getattr(cfg, field)!r}: use 'float32' or 'bfloat16'")
@@ -101,7 +106,8 @@ class MaskRCNN(nn.Module):
             raise ValueError(f"architecture={cfg.architecture!r} is not MaskRCNN's: build it with c4.build_model")
         self.cfg = cfg
         dtype, head_dtype = compute_dtypes(cfg)
-        self.backbone = ResNetFPN(cfg.depth, cfg.fpn_channels, cfg.stride_in_1x1, dtype)
+        self.backbone = ResNetFPN(cfg.depth, cfg.fpn_channels, cfg.stride_in_1x1, dtype, cfg.num_groups,
+                                  cfg.width_per_group)
         self.proposal_generator = nn.ModuleDict(
             {"rpn_head": RPNHead(len(cfg.anchors.aspect_ratios), cfg.fpn_channels, head_dtype)})
         self.roi_heads = ROIHeads(cfg)

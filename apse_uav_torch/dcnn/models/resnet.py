@@ -1,4 +1,4 @@
-"""ResNet-50/101 + FPN backbone (detectron2's ``build_resnet_fpn_backbone``).
+"""ResNet-50/101 and ResNeXt + FPN backbone (detectron2's ``build_resnet_fpn_backbone``).
 
 Counterpart of the JAX reference's ``dcnn/models/resnet.py``.  Module and
 parameter names are detectron2's, so the state dict of
@@ -16,13 +16,26 @@ an explicit per-channel affine, computed as the reference does.
 cast to it, parameters stay float32 and are cast at use (:func:`conv`), and
 every map comes out in it.  In bfloat16 the convolutions run on
 ``channels_last`` tensors, the layout of the card's bf16 tensor-core kernels.
+
+ResNeXt (``num_groups`` > 1, detectron2's ``RESNETS.NUM_GROUPS`` and
+``WIDTH_PER_GROUP``): each bottleneck's 3x3 convolution runs in
+``num_groups`` groups and the bottleneck is ``num_groups * width_per_group *
+2**stage`` channels wide (X101-32x8d: 256 in res2 ... 2048 in res5).  Only
+such a grouped convolution is traced (``utils/profiling.py``): the
+convolution alone is the span ``track.gconv``, and its FLOPs count under
+``x101.gconv_flops``, from the shapes (no sync).  A plain ResNet's blocks
+open no span and count nothing.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from apse_uav_torch.utils import profiling
 
 STAGE_BLOCKS = {
     # depth 26 = one bottleneck per stage: the smallest config with the same topology.
@@ -71,23 +84,38 @@ class FrozenBN(nn.Module):
 class ConvNorm(nn.Conv2d):
     """Bias-free convolution followed by FrozenBN (detectron2 ``Conv2d`` with ``norm``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1):
-        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2, bias=False)
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1, groups: int = 1):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2, groups=groups, bias=False)
         self.norm = FrozenBN(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(conv(self, x))
 
 
+class GroupedConvNorm(ConvNorm):
+    """A :class:`ConvNorm` in more than one group (a ResNeXt bottleneck's
+    3x3): the convolution alone is the span ``track.gconv``, and each call
+    counts 2 x N x C_out x H_out x W_out x (C_in / groups) x k x k FLOPs
+    under ``x101.gconv_flops``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with profiling.span("track.gconv"):
+            y = conv(self, x)
+        profiling.count("x101.gconv_flops", 2 * y.numel() * math.prod(self.weight.shape[1:]))
+        return self.norm(y)
+
+
 class Bottleneck(nn.Module):
     """detectron2 BottleneckBlock; ``stride_in_1x1`` puts the stride on conv1
-    (the MSRA / caffe-style weights of the model zoo), else on conv2."""
+    (the MSRA / caffe-style weights of the model zoo), else on conv2;
+    ``groups`` > 1 splits conv2 into that many groups (ResNeXt)."""
 
-    def __init__(self, in_ch: int, out_ch: int, bottleneck_ch: int, stride: int = 1, stride_in_1x1: bool = True):
+    def __init__(self, in_ch: int, out_ch: int, bottleneck_ch: int, stride: int = 1, stride_in_1x1: bool = True,
+                 groups: int = 1):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = ConvNorm(in_ch, bottleneck_ch, 1, s1)
-        self.conv2 = ConvNorm(bottleneck_ch, bottleneck_ch, 3, s3)
+        self.conv2 = (GroupedConvNorm if groups > 1 else ConvNorm)(bottleneck_ch, bottleneck_ch, 3, s3, groups)
         self.conv3 = ConvNorm(bottleneck_ch, out_ch, 1)
         self.shortcut = ConvNorm(in_ch, out_ch, 1, stride) if (in_ch != out_ch or stride != 1) else None
 
@@ -110,13 +138,15 @@ class Stem(nn.Module):
         return F.max_pool2d(F.relu(self.conv1(x)), 3, 2, 1)
 
 
-def stage_blocks(depth: int, stage: int, stride_in_1x1: bool) -> nn.Sequential:
+def stage_blocks(depth: int, stage: int, stride_in_1x1: bool, num_groups: int = 1,
+                 width_per_group: int = 64) -> nn.Sequential:
     """ResNet stage ``stage`` (0 = res2 ... 3 = res5): its bottlenecks, the
-    first with the shortcut and (from res3 on) stride 2."""
-    out_ch, mid_ch = 256 * 2**stage, 64 * 2**stage
+    first with the shortcut and (from res3 on) stride 2, each
+    ``num_groups * width_per_group * 2**stage`` wide inside."""
+    out_ch, mid_ch = 256 * 2**stage, num_groups * width_per_group * 2**stage
     in_ch = 64 if stage == 0 else out_ch // 2
     return nn.Sequential(*[Bottleneck(in_ch if b == 0 else out_ch, out_ch, mid_ch,
-                                      (1 if stage == 0 else 2) if b == 0 else 1, stride_in_1x1)
+                                      (1 if stage == 0 else 2) if b == 0 else 1, stride_in_1x1, num_groups)
                            for b in range(STAGE_BLOCKS[depth][stage])])
 
 
@@ -124,14 +154,16 @@ class ResNet(nn.Module):
     """Bottom-up trunk: NCHW input -> {"res2": (B, 256, H/4, W/4), ..., "res5": (B, 2048, H/32, W/32)}.
 
     ``max_stage`` truncates the trunk: the C4 backbone (Base-RCNN-C4.yaml)
-    ends at res4 and runs res5 in its ROI head (:class:`Res5Stage`)."""
+    ends at res4 and runs res5 in its ROI head (:class:`Res5Stage`).
+    ``num_groups`` and ``width_per_group`` make it a ResNeXt."""
 
-    def __init__(self, depth: int = 50, stride_in_1x1: bool = True, max_stage: int = 5):
+    def __init__(self, depth: int = 50, stride_in_1x1: bool = True, max_stage: int = 5, num_groups: int = 1,
+                 width_per_group: int = 64):
         super().__init__()
         self.stem = Stem()
         self.names = [f"res{stage + 2}" for stage in range(max_stage - 1)]
         for stage, name in enumerate(self.names):
-            self.add_module(name, stage_blocks(depth, stage, stride_in_1x1))
+            self.add_module(name, stage_blocks(depth, stage, stride_in_1x1, num_groups, width_per_group))
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         x = self.stem(x)
@@ -193,9 +225,9 @@ class ResNetFPN(FPN):
     maps (the tracker reads p2 for its re-ID embeddings)."""
 
     def __init__(self, depth: int = 50, channels: int = 256, stride_in_1x1: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, num_groups: int = 1, width_per_group: int = 64):
         super().__init__(channels)
-        self.bottom_up = ResNet(depth, stride_in_1x1)
+        self.bottom_up = ResNet(depth, stride_in_1x1, num_groups=num_groups, width_per_group=width_per_group)
         self.dtype = dtype
 
     def forward(self, x_nhwc: torch.Tensor) -> dict[str, torch.Tensor]:

@@ -16,10 +16,11 @@ twice:
    through the tracker's pinned ring (``track.upload_pinned``).
 
 Prints one JSON line: the numbers a frame by span name, the per-layer
-numbers PERF.md names for the benchmark (``metrics``), the idle gaps by span, the
-share of the 500 longest gaps' seconds that a span covers, and the share of
-each root span's host time that its children leave uncovered.  Needs a
-CUDA card.
+numbers PERF.md names for the benchmark (``metrics``; for X101 also
+``x101.gconv_ms``, the device ms a frame launched inside ``track.gconv``),
+the idle gaps by span, the share of the 500 longest gaps' seconds that a
+span covers, and the share of each root span's host time that its children
+leave uncovered.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -180,28 +181,36 @@ def aruco_program(cell, ctx):
 
 def tracker_program(cell, ctx):
     """The cell's tracker and ``Preprocessor`` on the benchmark's seeded,
-    calibrated weights, warmed up, and a function that runs ``track_frames``
-    over batches ``[i, i + n)``."""
+    calibrated weights (R-FPN's, or X101's for the ``tracker_x101``
+    family), warmed up, and a function that runs ``track_frames`` over
+    batches ``[i, i + n)``."""
     from apse_uav_torch.cli.track_uav import track_frames
     from apse_uav_torch.dcnn import config as pconfig
     from apse_uav_torch.dcnn.engines import RcnnTracker
     from apse_uav_torch.preproc.remap import Preprocessor
-    from benchkit import scene, weights
+    from benchkit import scene, weights, weights_x101
     from benchkit.refmodel import RefTracker, model_config, tracker_config
+    from benchkit.refmodel_x101 import RefTrackerX101, model_config_x101
 
     cfg, traffic, dev = ctx.config, ctx.traffic, ctx.device
     b, (w, h), m, t = traffic["batch"], cfg["frame_wh"], cfg["model"], cfg["tracker"]
     base = scene.render_video(cfg["camera"], (w, h), traffic, np.random.default_rng(ctx.seed), dev)
     variants = [[f + np.uint8(s) for f in base] for s in traffic["shifts"]]
     frame = cell.driver.frame_source(variants, traffic)
-    ckpt, assoc = weights.seeded_weights(ctx.seed, m["depth"], m["roi"]["num_classes"],
-                                         m["fpn_channels"] * t["roi_size"] ** 2, t["embedding_dim"], dev)
-    ref = RefTracker(m, t, ckpt, assoc, (h, w), cfg["camera"], dev)
-    weights.calibrate_background(ckpt, ref, [f for v in variants for f in v], cfg["calibration"]["per_frame"],
-                                 cfg["calibration"]["batch"])
+    x101 = cfg["family"] == "tracker_x101"
+    embed_in = m["fpn_channels"] * t["roi_size"] ** 2
+    if x101:
+        ckpt, assoc = weights_x101.seeded_weights(ctx.seed, m, embed_in, t["embedding_dim"], dev)
+        ref, calib = RefTrackerX101(m, t, ckpt, assoc, (h, w), cfg["camera"], dev), weights_x101
+    else:
+        ckpt, assoc = weights.seeded_weights(ctx.seed, m["depth"], m["roi"]["num_classes"], embed_in,
+                                             t["embedding_dim"], dev)
+        ref, calib = RefTracker(m, t, ckpt, assoc, (h, w), cfg["camera"], dev), weights
+    calib.calibrate_background(ckpt, ref, [f for v in variants for f in v], cfg["calibration"]["per_frame"],
+                               cfg["calibration"]["batch"])
     del ref
-    tracker = RcnnTracker(model_config(m, pconfig), tracker_config(t, pconfig), ckpt,
-                          {k: v.cpu() for k, v in assoc.items()}, (h, w), device=dev)
+    tracker = RcnnTracker((model_config_x101 if x101 else model_config)(m, pconfig), tracker_config(t, pconfig),
+                          ckpt, {k: v.cpu() for k, v in assoc.items()}, (h, w), device=dev)
     pre = Preprocessor(cfg["camera"]["mtx"], cfg["camera"]["dist"], (w, h), device=dev)
 
     def loop(i, n):
@@ -266,6 +275,8 @@ def main(argv=None) -> int:
            "spans_stretch_s": stretch_s, **report(profiling.spans(), syncs, n * b),
            "pinned_uploads_per_batch": (profiling.counters.get("track.upload_pinned", 0) - pinned) / n,
            "launches_per_frame_by_span": launches, "launch_routes": how, "idle": idle}
+    if "track.gconv" in launches:  # X101's grouped 3x3s alone, as the benchmark's x101.gconv_ms reads them
+        out["metrics"]["x101.gconv_ms"] = launches["track.gconv"]["device_ms"]
     profiling.reset_spans()
     print(json.dumps(out), flush=True)
     return 0
