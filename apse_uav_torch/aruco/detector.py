@@ -678,15 +678,17 @@ def _otsu_split(cells: torch.Tensor) -> torch.Tensor:
     return (torch.gather(v, 1, i[:, None]) + torch.gather(v, 1, i[:, None] + 1))[:, 0] / 2.0
 
 
-def _decode_candidate(img: torch.Tensor, corners_yx: torch.Tensor, p: DetectorParams):
-    """Decode quads: (id, rotation, border_ok, hamming), each (N,)."""
+def _decode_candidate(img: torch.Tensor, corners_yx: torch.Tensor, p: DetectorParams,
+                      table: torch.Tensor | None = None):
+    """Decode quads: (id, rotation, border_ok, hamming), each (N,); ``table``
+    as :func:`~apse_uav_torch.aruco.dictionary.match_dictionary` takes it."""
     cells = _sample_cells(img, corners_yx)
     bits = (cells > _otsu_split(cells)[:, None, None]).to(torch.int64)
     border = torch.cat([bits[:, 0, :], bits[:, 5, :], bits[:, 1:5, 0], bits[:, 1:5, 5]], dim=1)
     border_ok = border.sum(1) <= math.floor(20 * p.max_border_errors)
     weights = 2 ** torch.arange(15, -1, -1, device=img.device)
     packed = (bits[:, 1:5, 1:5].reshape(-1, 16) * weights).sum(1)
-    ids, rot, dist = dict_mod.match_dictionary(packed, p.error_correction_rate)
+    ids, rot, dist = dict_mod.match_dictionary(packed, p.error_correction_rate, table)
     return torch.where(border_ok, ids, torch.full_like(ids, -1)), rot, border_ok, dist
 
 
@@ -695,16 +697,19 @@ def _decode_candidate(img: torch.Tensor, corners_yx: torch.Tensor, p: DetectorPa
 # ---------------------------------------------------------------------------
 
 
-def binarized_windows(g: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor, p: DetectorParams):
-    """Patch, window and 2-means mask of every slot, per patch-size group.
+def binarized_windows(gray: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor, p: DetectorParams):
+    """The candidate stage before K1: patch, window and 2-means mask of every
+    slot, per patch-size group.
 
-    g (B, H, W) f32 -> ([per group: (patch, p_origin, window, scale, origin,
-    dark, hi - lo) over its B * n candidates], darks (B * K, win, win) bool
-    in slot order -- the input of the component labeling, kernel K1).
+    gray (B, H, W) u8 or f32, sampled as f32 -> ([per group: (patch,
+    p_origin, window, scale, origin, hi - lo) over its B * n candidates],
+    darks (B * K, win, win) bool in slot order -- the input of the
+    component labeling, kernel K1).
     """
+    g = gray.to(torch.float32)
     bsz, h, w = g.shape
     win_n = p.window
-    pres = []
+    pres, darks = [], []
     for a, b, ps in _patch_groups(h, w, p):
         patch, p_origin = _extract_patch(g, centers[:, a:b], ps)  # (B, n, ps, ps)
         n = bsz * (b - a)
@@ -713,37 +718,31 @@ def binarized_windows(g: torch.Tensor, centers: torch.Tensor, sizes: torch.Tenso
         center_rel = centers[:, a:b].reshape(n, 2) - p_origin
         win, scale, origin = _extract_window(patch, center_rel, sizes[:, a:b].reshape(n), win_n)
         dark, lo, hi = _binarize(win)
-        pres.append((patch, p_origin, win, scale, origin, dark, hi - lo))
-    darks = torch.cat([pr[5].reshape(bsz, -1, win_n, win_n) for pr in pres], dim=1)
-    return pres, darks.reshape(-1, win_n, win_n)
+        pres.append((patch, p_origin, win, scale, origin, hi - lo))
+        darks.append(dark.reshape(bsz, -1, win_n, win_n))
+    return pres, torch.cat(darks, dim=1).reshape(-1, win_n, win_n)
 
 
-def candidates(gray: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor, scores: torch.Tensor,
-               valid: torch.Tensor, p: DetectorParams, covered: torch.Tensor | None = None):
-    """The candidate stage for a batch: gray (B, H, W) u8 and the (B, K)
-    proposal slots -> corners (B, K, 4, 2) x,y and ids (B, K) (-1 = none).
-
-    ``covered`` (B, K) bool: two-pass coverage mask; candidates whose patch
-    tiles were not recomputed are invalidated before the overlap dedup.
-    Component labeling goes through :func:`apse_uav_torch.aruco.cuda_labeling.labels`
-    (kernel K1 on the card, :func:`_label_sweeps` on the CPU).
-    """
-    from apse_uav_torch.aruco import cuda_labeling
-
-    g = gray.to(torch.float32)
-    bsz, h, w = g.shape
-    k_all = centers.shape[1]
+def candidates_from_labels(labels: torch.Tensor, pres: list, scores: torch.Tensor, valid: torch.Tensor,
+                           hw: tuple[int, int], p: DetectorParams, covered: torch.Tensor | None = None,
+                           table: torch.Tensor | None = None):
+    """The candidate stage after K1: the labels (B * K, win, win) of the dark
+    masks and the groups ``pres`` of :func:`binarized_windows`, the (B, K)
+    proposal scores and validity on frames of size ``hw`` -> corners
+    (B, K, 4, 2) x,y and ids (B, K) (-1 = none).  ``covered`` as
+    :func:`candidates` takes it; ``table`` as
+    :func:`~apse_uav_torch.aruco.dictionary.match_dictionary` takes it.  Makes
+    no host sync when ``table`` is given."""
+    h, w = hw
+    bsz, k_all = valid.shape
     if covered is not None:
         valid = valid & covered
-    groups = _patch_groups(h, w, p)
     win_n = p.window
-    pres, darks = binarized_windows(g, centers, sizes, p)
-    labels = cuda_labeling.labels(darks)
     masks = _largest_from_labels(labels, win_n).reshape(bsz, k_all, win_n, win_n)
 
     outs = []
-    for (a, b, ps), pr in zip(groups, pres):
-        patch, p_origin, win, scale, origin, _, diff = pr
+    for (a, b, ps), pr in zip(_patch_groups(h, w, p), pres):
+        patch, p_origin, win, scale, origin, diff = pr
         n = patch.shape[0]
         mask = masks[:, a:b].reshape(n, win_n, win_n)
         ok = valid[:, a:b].reshape(n)
@@ -759,10 +758,10 @@ def candidates(gray: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor, s
         good_refine = drift < 6.0
         corners = torch.where(good_refine[:, None, None], refined, rough)
         mse_ok = (mse < p.max_line_fit_mse) & good_refine
-        marker_id, rot, bits_ok, ham = _decode_candidate(patch, corners, p)
+        marker_id, rot, bits_ok, ham = _decode_candidate(patch, corners, p, table)
         corners = corners + p_origin[:, None, :]
         # Canonical corner order: roll by -rot (OpenCV's top-left first).
-        order = (torch.arange(4, device=g.device)[None, :] + rot[:, None].to(torch.int64)) % 4
+        order = (torch.arange(4, device=labels.device)[None, :] + rot[:, None].to(torch.int64)) % 4
         corners = torch.gather(corners, 1, order[..., None].expand(-1, -1, 2))
         side = torch.linalg.vector_norm(corners - torch.roll(corners, 1, dims=1), dim=-1).mean(dim=1)
         floor_ok = side >= p.min_marker_perimeter_rate * max(h, w) / 4.0
@@ -782,12 +781,31 @@ def candidates(gray: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor, s
     radius2 = (torch.maximum(sides[:, :, None], sides[:, None, :]) * 0.55) ** 2
     overlap = d2 < radius2
     rank = (-hams.to(torch.float32) * 1e6 + sides * 1e2 + scores
-            - torch.arange(k_all, dtype=torch.float32, device=g.device) * 1e-3)
+            - torch.arange(k_all, dtype=torch.float32, device=labels.device) * 1e-3)
     rank = torch.where(ids >= 0, rank, torch.full_like(rank, -math.inf))
     better = rank[:, None, :] > rank[:, :, None]
     suppressed = (overlap & better & (ids[:, None, :] >= 0)).any(dim=2)
     ids = torch.where(suppressed, torch.full_like(ids, -1), ids)
     return torch.stack([corners[..., 1], corners[..., 0]], dim=-1), ids
+
+
+def candidates(gray: torch.Tensor, centers: torch.Tensor, sizes: torch.Tensor, scores: torch.Tensor,
+               valid: torch.Tensor, p: DetectorParams, covered: torch.Tensor | None = None):
+    """The candidate stage for a batch: gray (B, H, W) u8 and the (B, K)
+    proposal slots -> corners (B, K, 4, 2) x,y and ids (B, K) (-1 = none).
+
+    ``covered`` (B, K) bool: two-pass coverage mask; candidates whose patch
+    tiles were not recomputed are invalidated before the overlap dedup.
+    Each patch group copies the dictionary's table from the host.
+    :func:`binarized_windows`, component labeling through
+    :func:`apse_uav_torch.aruco.cuda_labeling.labels` (kernel K1 on the card,
+    :func:`_label_sweeps` on the CPU), then :func:`candidates_from_labels`.
+    """
+    from apse_uav_torch.aruco import cuda_labeling
+
+    pres, darks = binarized_windows(gray, centers, sizes, p)
+    labels = cuda_labeling.labels(darks)
+    return candidates_from_labels(labels, pres, scores, valid, tuple(gray.shape[1:]), p, covered)
 
 
 class ArucoDetector:

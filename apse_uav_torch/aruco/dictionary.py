@@ -55,17 +55,25 @@ def _popcount16(x: torch.Tensor) -> torch.Tensor:
     return (x + (x >> 8)) & 0x1F
 
 
-def match_dictionary(bits: torch.Tensor, error_correction_rate: float = 2.0):
+def rotation_table(device=None) -> torch.Tensor:
+    """The (200,) int64 codes of every (id, rotation) in table order on ``device``: a copy from the host."""
+    return torch.as_tensor(_ALL_ROTATIONS, device=device).reshape(200)
+
+
+def match_dictionary(bits: torch.Tensor, error_correction_rate: float = 2.0, table: torch.Tensor | None = None):
     """Match packed 16-bit codes (...,) against DICT_4X4_50.
 
     Returns (ids, rotations, distances), each (...,) int32; id -1 when no
     code is within the correction budget; rotation k = roll the candidate's
     corners by k to the canonical orientation.  Ties take the first
-    (id, rotation) in table order, like ``jnp.argmin``.
+    (id, rotation) in table order, like ``jnp.argmin``.  With ``table``
+    (:func:`rotation_table` on the codes' device, made once by the caller)
+    the call copies nothing from the host.
     """
     budget = int(MAX_CORRECTION_BITS * error_correction_rate)
-    with profiling.sync("dictionary_table"):  # a copy from the host
-        table = torch.as_tensor(_ALL_ROTATIONS, device=bits.device).reshape(200)
+    if table is None:
+        with profiling.sync("dictionary_table"):  # a copy from the host
+            table = rotation_table(bits.device)
     dist = _popcount16(torch.bitwise_xor(bits.to(torch.int64)[..., None], table))  # (..., 200)
     best_dist, best = torch.min(dist, dim=-1)
     # torch.min's index on ties is not promised to be the first: take it explicitly.

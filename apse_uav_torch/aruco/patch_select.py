@@ -26,21 +26,30 @@ def select_tiles(centers: torch.Tensor, valid: torch.Tensor, *, h: int, w: int, 
     return sel[0], covered[0]
 
 
+def patch_sizes(groups: tuple, k: int, device=None) -> torch.Tensor:
+    """(k,) int64: each of the k proposal slots' patch side, from its group of
+    ``groups`` ((start_slot, stop_slot, psize) a group), on ``device``: a copy from the host."""
+    psize = torch.zeros(k, dtype=torch.int64)
+    for a, b, ps in groups:
+        psize[a:b] = ps
+    return psize.to(device)
+
+
 def select_tiles_batched(centers: torch.Tensor, valid: torch.Tensor, *, h: int, w: int, th: int, tw: int,
-                         groups: tuple, t_sel: int, per_scale_k: int):
+                         groups: tuple, t_sel: int, per_scale_k: int, psize: torch.Tensor | None = None):
     """centers (B, K, 2) f32 yx, valid (B, K) bool ->
     sel (B, min(t_sel, n_tiles)) int32 tile ids (ty * ntx + tx; -1 padding),
-    covered (B, K) bool."""
+    covered (B, K) bool.  With ``psize`` (:func:`patch_sizes` of ``groups``
+    on the centers' device, made once by the caller) the call copies nothing
+    from the host."""
     nty, ntx = h // th, w // tw
     n_tiles = nty * ntx
     t_sel = min(t_sel, n_tiles)
     bsz, k = valid.shape
     dev = centers.device
-    psize = torch.zeros(k, dtype=torch.int64)
-    for a, b, ps in groups:
-        psize[a:b] = ps
-    with profiling.sync("tile_sizes"):  # a copy from the host
-        psize = psize.to(dev)
+    if psize is None:
+        with profiling.sync("tile_sizes"):  # a copy from the host
+            psize = patch_sizes(groups, k, dev)
     prio = torch.arange(k, device=dev) % per_scale_k
 
     cy = torch.round(centers[..., 0]).to(torch.int64)

@@ -8,12 +8,15 @@ Counterpart of the JAX reference's ``aruco/pipeline.py``:
   tiles, the candidate stage (with K1).  Single-pass (``two_pass=False``):
   K3 over the whole full-resolution frame, then the detector's pool, K2
   and the candidate stage with K1.  Then per-id slots and
-  unit-length planar pose for both ambiguity basins: pose's constants are
-  made with the pipeline, so pose makes no host sync, and on a card it is
-  one CUDA graph a call, captured once for each input shape and replayed
-  (counters ``aruco.pose_graph.capture`` and ``aruco.pose_graph.replay``).
-  On the CPU the plain versions run and the full-resolution gray covers the
-  whole frame, as the reference's CPU path does.
+  unit-length planar pose for both ambiguity basins.  The constants of the
+  tile selection, the candidate stage and pose are made with the pipeline,
+  so a call copies nothing from the host.  On a card the candidate stage is
+  two CUDA graphs a call with K1 launched between them (counters
+  ``aruco.windows_graph.*`` and ``aruco.candidates_graph.*``) and pose one
+  (``aruco.pose_graph.capture`` and ``.replay``), each captured once for
+  each input shape and replayed.  On the CPU the same functions run one
+  after the other and the full-resolution gray covers the whole frame, as
+  the reference's CPU path does.
 * **scan**: the reference's per-frame state machine (DIFF_MAX gating,
   marker-size rings, altitude fallback, LEDs, distances) as a Python loop
   over frames with the same carry semantics.  It makes no host sync, so on
@@ -31,12 +34,14 @@ id 4 (slot 3).
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from apse_uav_torch.aruco import detector as det, geometry as geo, patch_select, pose
+from apse_uav_torch.aruco import cuda_labeling, detector as det, dictionary as dict_mod, geometry as geo, patch_select
+from apse_uav_torch.aruco import pose
 from apse_uav_torch.aruco.detector import DetectorParams
 from apse_uav_torch.core import camera, rotation
 from apse_uav_torch.device import resolve_device
@@ -193,7 +198,10 @@ class ArucoPipeline:
             self._pooled_tiles = remap.pick_tiles(wp, hp)
             mtx_p = torch.as_tensor(twopass.pooled_camera(mtx, st), dtype=torch.float32, device=self.device)
             self.map_pooled = camera.undistort_rectify_map(mtx_p, self.dist, (wp, hp), tilt=self.tilt)
-            self._groups = tuple(det._patch_groups(h, w, self.params))
+        # The tile selection's and the candidate stage's constants, made once here so that a call copies nothing.
+        self._groups = tuple(det._patch_groups(h, w, self.params))
+        self._patch_sizes = patch_select.patch_sizes(self._groups, self._groups[-1][1], self.device)
+        self._dict_table = dict_mod.rotation_table(self.device)
         # The scan's constants, made once here so that a step copies nothing from the host.
         f32 = dict(dtype=torch.float32, device=self.device)
         self._led_points = torch.tensor(geo.LED_POINTS, **f32)
@@ -235,7 +243,7 @@ class ArucoPipeline:
                 with profiling.span("aruco.proposals"):
                     props = det.proposals(pool, h, w, p)  # K2
                 with profiling.span("aruco.candidates"):
-                    corners, ids = det.candidates(gray, *props, p)  # K1 inside
+                    corners, ids = self._candidates(gray, *props, None)  # K1 inside
                 return self._front_from_detections(gray, corners, ids)
             with profiling.span("aruco.pool"):
                 pooled_src = cuda_pool.pool_source(frames, st, self._pooled_hw)  # K5
@@ -248,7 +256,7 @@ class ArucoPipeline:
             with profiling.span("aruco.select_tiles"):
                 sel, covered = patch_select.select_tiles_batched(
                     centers, valid, h=h, w=w, th=self._sel_th, tw=self._sel_tw, groups=self._groups,
-                    t_sel=self.cfg.sel_tile_budget, per_scale_k=p.per_scale_k,
+                    t_sel=self.cfg.sel_tile_budget, per_scale_k=p.per_scale_k, psize=self._patch_sizes,
                 )
             with profiling.span("aruco.remap_selected"):
                 if self.device.type == "cuda":
@@ -257,8 +265,38 @@ class ArucoPipeline:
                 else:
                     gray = cuda_remap.remap_gray(frames, self.map_full, self._sel_th, self._sel_tw)
             with profiling.span("aruco.candidates"):
-                corners, ids = det.candidates(gray, centers, sizes, scores, valid, p, covered)  # K1 inside
+                corners, ids = self._candidates(gray, centers, sizes, scores, valid, covered)  # K1 inside
             return self._front_from_detections(gray, corners, ids)
+
+    def _candidates(self, gray, centers, sizes, scores, valid, covered):
+        """The candidate stage (:func:`det.candidates`) as :func:`det.binarized_windows`,
+        K1 through its wrapper, then :func:`det.candidates_from_labels`; on a
+        card the two functions are CUDA graphs (:meth:`_stage`), keyed by the
+        inputs' shapes and dtypes and by whether ``covered`` is given, and K1
+        is launched between them."""
+        p, hw = self.params, tuple(gray.shape[1:])
+        extra = [] if covered is None else [covered]
+        key = (tuple((t.shape, t.dtype) for t in (gray, centers, sizes, scores, valid)), covered is not None)
+
+        def windows(inputs):
+            pres, darks = det.binarized_windows(*inputs, p)
+            return {"darks": darks, **{(g, i): t for g, parts in enumerate(pres) for i, t in enumerate(parts)}}
+
+        out = self._stage("windows", key, windows, [gray, centers, sizes])
+        labels = cuda_labeling.labels(out.pop("darks"))  # K1
+        parts = list(out)  # (group, index in the group's tuple)
+
+        def rest(inputs):
+            labels_, scores_, valid_, *more = inputs
+            covered_ = more.pop(0) if extra else None
+            named = dict(zip(parts, more))
+            pres = [tuple(named[k] for k in sorted(k for k in named if k[0] == g)) for g in range(len(self._groups))]
+            corners, ids = det.candidates_from_labels(labels_, pres, scores_, valid_, hw, p, covered_,
+                                                      self._dict_table)
+            return {"corners": corners, "ids": ids}
+
+        out = self._stage("candidates", key, rest, [labels, scores, valid, *extra, *(out[k] for k in parts)])
+        return out["corners"], out["ids"]
 
     def _front_from_detections(self, gray, corners, ids):
         """Pose of the detections: on a card one CUDA graph a call, keyed by the inputs' shapes and dtypes."""
@@ -266,12 +304,8 @@ class ArucoPipeline:
             n = 4 * ids.shape[0]  # four slots a frame
             if n not in self._pose_inverse:
                 self._pose_inverse[n] = pose.source_inverse(self._pose_obj[:, :2], n)
-            run = lambda inputs: self._pose(*inputs, self._pose_inverse[n])
-            if self.device.type == "cuda":
-                key = tuple((t.shape, t.dtype) for t in (ids, corners))
-                out = self._graphed("pose", key, run, [ids, corners])
-            else:
-                out = run([ids, corners])
+            key = tuple((t.shape, t.dtype) for t in (ids, corners))
+            out = self._stage("pose", key, lambda inputs: self._pose(*inputs, self._pose_inverse[n]), [ids, corners])
         return {**out, "gray": gray}
 
     def _pose(self, ids, corners, src_inv):
@@ -454,6 +488,10 @@ class ArucoPipeline:
 
         return self._split(self._graphed("scan", key, run, inputs))
 
+    def _stage(self, name: str, key: tuple, run, inputs: list[torch.Tensor]) -> dict:
+        """``run(inputs)``: on a card as a CUDA graph (:meth:`_graphed`), on the CPU as it is."""
+        return self._graphed(name, key, run, inputs) if self.device.type == "cuda" else run(inputs)
+
     def _graphed(self, name: str, key: tuple, run, inputs: list[torch.Tensor]) -> dict:
         """``run(inputs)`` (tensors by name, no host sync) as a CUDA graph a key:
         on a key seen before, the inputs copied into the graph's buffers, one
@@ -472,17 +510,23 @@ class ArucoPipeline:
         # PyTorch's rules for a capture: warm up on a side stream, then
         # capture there into the graph's private memory pool.  Not through
         # torch.cuda.graph(), which first synchronizes the device: a host sync.
+        # No garbage collection while capturing: freeing another graph then
+        # (one left in a reference cycle) would invalidate the capture.
         here = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(here)
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
         with torch.cuda.stream(side):
             flats, layout = _pack(run(static))
+            gc.disable()
             graph.capture_begin()
             try:
                 static_flats, _ = _pack(run(static))
             finally:
                 graph.capture_end()
+                if collecting:
+                    gc.enable()
         here.wait_stream(side)
         for f in flats:
             f.record_stream(here)

@@ -215,7 +215,9 @@ class UploadRing:
 
         if not 0 < len(frames) <= self.batch:
             raise ValueError(f"{len(frames)} frames for slots of {self.batch}")
-        src = [torch.from_numpy(f) for f in frames]
+        # A C-contiguous frame as it is; a copy only of a view that no tensor
+        # can hold (negative strides, as a channel-reversed frame[..., ::-1]).
+        src = [torch.from_numpy(np.ascontiguousarray(f)) for f in frames]
         shape = (self.batch, *src[0].shape)
         if not self.buffers or self.buffers[0].shape != shape or self.buffers[0].dtype != src[0].dtype:
             # A copy still reading an old slot keeps its memory: the caching

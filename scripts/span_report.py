@@ -9,13 +9,16 @@ the cell's shapes, then runs the window's own loop over ``--frames`` frames
 twice:
 
 1. spans on, ``torch.profiler`` on: each kernel's launch (its host call,
-   matched by correlation id) is set against the spans open at it, and each
-   idle gap of the card against the spans open across its middle;
+   matched by correlation id; for a node of a CUDA graph, the graph's
+   launch) is set against the spans open at it, and each idle gap of the
+   card against the spans open across its middle;
 2. spans on, the profiler off: each span's host time, self time and wait in
    ``sync.*`` spans, the ``sync.*`` counters, and the batches that went up
    through the tracker's pinned ring (``track.upload_pinned``).
 
-Prints one JSON line: the numbers a frame by span name, the per-layer
+Prints one JSON line: the numbers a frame by span name, the kernels a
+frame of the whole profiled stretch (``launches_per_frame``, copies aside,
+as the benchmark's ``aruco.launches_per_frame`` counts them), the per-layer
 numbers PERF.md names for the benchmark (``metrics``; for X101 also
 ``x101.gconv_ms``, the device ms a frame launched inside ``track.gconv``),
 the idle gaps by span, the share of the 500 longest gaps' seconds that a
@@ -37,9 +40,10 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [os.path.join(REPO, "benchmark"), REPO]
 
-# Runtime calls that queue work on the card (their correlation id is the kernel's).
+# Runtime calls that queue work on the card (their correlation id is the kernel's; every node of a
+# replayed CUDA graph carries its graph launch's).
 _QUEUING = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx", "cudaMemcpyAsync",
-            "cudaMemsetAsync")
+            "cudaMemsetAsync", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def device_activity(prof) -> tuple[list, dict]:
@@ -256,6 +260,7 @@ def main(argv=None) -> int:
     activity, how = device_activity(prof)
     launches = {k: {"launches": v["launches"] / (n * b), "device_ms": v["device_ms"] / (n * b)}
                 for k, v in by_span(traced, activity).items()}
+    kernels = sum(1 for a in activity if not a[3].startswith(("Memcpy", "Memset"))) / (n * b)
     idle = idle_gaps(traced, activity)
     if "aruco.candidates" in launches:
         idle["aruco.candidates_launches_per_frame"] = launches["aruco.candidates"]["launches"]
@@ -274,7 +279,8 @@ def main(argv=None) -> int:
     out = {"workload": cell.name, "seed": args.seed, "frames": n * b, "card": chip.power_limit(),
            "spans_stretch_s": stretch_s, **report(profiling.spans(), syncs, n * b),
            "pinned_uploads_per_batch": (profiling.counters.get("track.upload_pinned", 0) - pinned) / n,
-           "launches_per_frame_by_span": launches, "launch_routes": how, "idle": idle}
+           "launches_per_frame": kernels, "launches_per_frame_by_span": launches, "launch_routes": how,
+           "idle": idle}
     if "track.gconv" in launches:  # X101's grouped 3x3s alone, as the benchmark's x101.gconv_ms reads them
         out["metrics"]["x101.gconv_ms"] = launches["track.gconv"]["device_ms"]
     profiling.reset_spans()

@@ -456,19 +456,18 @@ def test_upload_ring_refills_a_slot_only_after_its_copy(dev):
 
 @pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "single_pass"])
 def test_aruco_sync_counters_match_the_card(dev, cam, frames, two_pass):
-    """One ``ArucoPipeline.process`` call after a first: the ``sync.*``
-    counters equal the host syncs the card reports."""
+    """A steady-state ``ArucoPipeline.process`` call (after a first and a
+    second): no ``sync.*`` counted and none reported by the card, and one
+    replay of each of its four graphs."""
     cfg = ArucoPipelineConfig(two_pass=two_pass)
     pipe = ArucoPipeline(*cam, (W, H), cfg, device="cuda")
     carry, _ = pipe.process(frames, init_carry(cfg, "cuda"), first=True)
+    carry, _ = pipe.process(frames, carry)
     profiling.reset_counters()
     syncs = _sync_warnings(lambda: pipe.process(frames, carry))
-    counted = profiling.counted("sync")
-    assert len(syncs) == sum(counted.values()), f"{syncs} {counted}"
-    # All in the candidate stage: pose, a graph replayed in this call, and the scan, captured in it, make none.
-    front_sites = {"dictionary_table"} | ({"tile_sizes"} if two_pass else set())
-    assert set(counted) == front_sites and profiling.counted("aruco.scan_graph") == {"capture": 1}, counted
-    assert profiling.counted("aruco.pose_graph") == {"replay": 1}
+    assert syncs == [] and profiling.counted("sync") == {}, (syncs, profiling.counters)
+    for name in ("windows", "candidates", "pose", "scan"):
+        assert profiling.counted(f"aruco.{name}_graph") == {"replay": 1}, (name, profiling.counters)
 
 
 @pytest.fixture(scope="module")
@@ -605,6 +604,64 @@ def test_aruco_pose_graph_does_not_sync(dev, cam, frames):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert profiling.counted("aruco.pose_graph") == {"capture": 1, "replay": 1}
+    assert not profiling.counted("sync")
+
+
+def _candidate_stage_calls(pipe):
+    """Record each candidate stage of ``pipe``: (its arguments, corners, ids)."""
+    seen = []
+    stage = pipe._candidates
+    pipe._candidates = lambda *a: seen.append((a, *stage(*a))) or seen[-1][1:]
+    return seen
+
+
+@pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "single_pass"])
+def test_aruco_candidates_graph_matches_the_eager_stage(dev, cam, scan_frames, two_pass):
+    """The candidate stage as two CUDA graphs around K1 against the eager
+    ``det.candidates`` on the same inputs (which copies its constants from
+    the host), corners and ids bit for bit: calls of 4, 4, 4 and 3 frames.
+    What a call returned reads the same after the later calls; the 4-frame
+    calls capture each graph once and replay it twice, the 3-frame call
+    captures once more; K1 is launched once a call, outside the graphs."""
+    pipe = ArucoPipeline(*cam, (W, H), ArucoPipelineConfig(two_pass=two_pass), device="cuda")
+    seen = _candidate_stage_calls(pipe)
+    profiling.reset_counters()
+    k1 = f"launch.{cuda_labeling.NAME}"
+    kept = []
+    for i, n in enumerate([4, 4, 4, 3]):
+        pipe.front(scan_frames[:n])
+        assert profiling.counters[k1] == 2 * i + 1  # this call's, and one of each eager stage before
+        (gray, centers, sizes, scores, valid, covered), corners, ids = seen[-1]
+        assert (covered is not None) == two_pass
+        want = det.candidates(gray, centers, sizes, scores, valid, pipe.params, covered)
+        assert bool((want[1] >= 0).any(1).all()), i
+        for got, w in zip((corners, ids), want):
+            assert got.dtype == w.dtype and torch.equal(got, w), i
+        for old, snapshot in kept:
+            assert all(torch.equal(a, b) for a, b in zip(old, snapshot)), i
+        kept.append(((corners, ids), (corners.clone(), ids.clone())))
+    for name in ("windows", "candidates"):
+        assert profiling.counted(f"aruco.{name}_graph") == {"capture": 2, "replay": 2}, name
+
+
+def test_aruco_candidates_graph_does_not_sync(dev, cam, frames):
+    """The candidate stage's captures and replays, with K1 between them, on
+    a pipeline just built, each under sync-as-error: none waits for the card."""
+    other = ArucoPipeline(*cam, (W, H), device="cuda")
+    seen = _candidate_stage_calls(other)
+    other.front(frames)
+    args = seen[0][0]
+    pipe = ArucoPipeline(*cam, (W, H), device="cuda")
+    profiling.reset_counters()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pipe._candidates(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for name in ("windows", "candidates"):
+        assert profiling.counted(f"aruco.{name}_graph") == {"capture": 1, "replay": 1}, name
     assert not profiling.counted("sync")
 
 

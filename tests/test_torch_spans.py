@@ -168,8 +168,8 @@ def test_aruco_call_emits_every_span(recording, two_pass):
     """One ``ArucoPipeline.process`` call of two frames: the front's stages
     in order under ``aruco.front`` (K3 on the whole frame on the single-pass
     path), pose, then the scan a step a frame, all under ``aruco.process``
-    with its call number, and every sync on the path counted at its site; a
-    tensor of first-frame flags is one more."""
+    with its call number, and no sync on the path; a tensor of first-frame
+    flags is one, counted at its site."""
     from apse_uav_torch.aruco.pipeline import ArucoPipeline, ArucoPipelineConfig, init_carry
     from apse_uav_torch.utils.synthetic import MarkerSpec, render_scene
 
@@ -189,13 +189,11 @@ def test_aruco_call_emits_every_span(recording, two_pass):
         (0, "aruco.process"), (1, "aruco.front"), *((2, n) for n in stages), (2, "aruco.candidates"),
         (2, "aruco.pose"), (1, "aruco.scan"), (2, "aruco.step"), (2, "aruco.step")]
     assert {s.batch for s in got} == {pipe.calls} == {1}
-    # The copies from the host and reads back on the path, each a sync on the card, at their stages; the
-    # scan's and pose's constants are made with the pipeline and the scan's fallback altitude is a gather, so
-    # neither pose nor the steps make any.
+    # The constants of the tile selection, the candidate stage, pose and the scan are made with the pipeline
+    # and the scan's fallback altitude is a gather, so a call with a list of first-frame flags counts no sync.
     syncs = profiling.counted("sync")
-    assert "const" not in syncs and "altitude_fallback" not in syncs and syncs["dictionary_table"] > 0
-    assert not {"pose_points", "pose_inverse", "pose_mirror"} & set(syncs)
-    assert syncs.get("tile_sizes", 0) == two_pass and "first_frame" not in syncs
+    assert "dictionary_table" not in syncs and "tile_sizes" not in syncs, syncs
+    assert syncs == {}, syncs
     stage_of = {s.name: got[s.parent].name for s in got if s.name.startswith("sync.")}
     assert not {"aruco.pose", "aruco.step"} & set(stage_of.values())
     profiling.reset_spans()
@@ -232,6 +230,33 @@ def test_span_report_sets_kernels_and_gaps_against_spans():
     assert idle["gaps"] == 2 and idle["busy_s"] == pytest.approx(280e-9)
     assert dict(idle["by_span"]) == pytest.approx({"a.root > a.other": 500e-9, "outside the spans": 320e-9})
     assert idle["longest_named_share"] == pytest.approx(500 / 820)
+
+
+def test_span_report_launches_graph_nodes_at_their_graph_launch():
+    """``span_report.device_activity`` on a made-up trace (us): an eager
+    kernel is launched at its ``cudaLaunchKernel``, every node of a replayed
+    graph at its ``cudaGraphLaunch`` (one correlation id for all of them),
+    and a kernel with no runtime call at its own start; so a graph's nodes
+    count for the span that replayed it, not for the one open when the card
+    ran them."""
+    from types import SimpleNamespace as NS
+
+    sr = _span_report()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ev(name, i, start, end, device=cpu):
+        return NS(name=name, id=i, device_type=device, time_range=NS(start=start, end=end), is_user_annotation=False)
+
+    events = [ev("cudaLaunchKernel", 1, 1.0, 2.0), ev("cudaGraphLaunch", 2, 3.0, 4.0),
+              ev("k_eager", 1, 5.0, 6.0, cuda), ev("node_a", 2, 7.0, 8.0, cuda), ev("node_b", 2, 9.0, 10.0, cuda),
+              ev("k_lost", 3, 11.0, 12.0, cuda)]
+    prof = NS(profiler=NS(kineto_results=NS(trace_start_ns=lambda: 1000)), events=lambda: events)
+    activity, how = sr.device_activity(prof)
+    assert how == {"runtime": 3, "none": 1}
+    assert activity == [(2000, 6000, 7000, "k_eager"), (4000, 8000, 9000, "node_a"),
+                        (4000, 10000, 11000, "node_b"), (12000, 12000, 13000, "k_lost")]
+    recorded = [profiling.Span("a.graph", 3500, 4500, -1, 1)]
+    assert sr.by_span(recorded, activity)["a.graph"]["launches"] == 2
 
 
 def test_span_report_reads_the_tracing_metrics(recording):

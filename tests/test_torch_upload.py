@@ -52,6 +52,16 @@ def test_upload_ring_short_batch_is_a_view_of_its_slot():
     np.testing.assert_array_equal(ring.buffers[0][2:].numpy(), np.stack(full[2:]))
 
 
+def test_upload_ring_stages_channel_reversed_views():
+    """Frames handed over as views with a negative stride (BGR to RGB as
+    ``frames[..., ::-1]``, which no tensor can view) stage as their values."""
+    ring = UploadRing(2, pin=False)
+    frames = _frames(2, 4)
+    i, rows = ring.stage([f[..., ::-1] for f in frames])
+    assert i == 0
+    np.testing.assert_array_equal(rows.numpy(), np.stack(frames)[..., ::-1])
+
+
 @pytest.mark.parametrize("change", ["none", "shape", "dtype"])
 def test_upload_ring_allocates_again_only_for_a_new_frame_shape_or_dtype(change):
     """The same frames keep the buffers; frames of another shape or dtype get
