@@ -8,7 +8,10 @@ ArUco pipeline reads, and optionally writes visualised frames; plus
 back) and ``--arch c4``, which runs Mask R-CNN R-C4 (res5 as the ROI head;
 the re-ID embeddings read its res2) where the reference runs R-FPN, and
 ``--resnext 32x8d``, which runs Mask R-CNN X101-32x8d-FPN (the R-FPN
-tracker on a ResNeXt trunk: 32 groups in every bottleneck's 3x3).  With
+tracker on a ResNeXt trunk: 32 groups in every bottleneck's 3x3), and
+``--arch vitdet``, which runs ViTDet-B's Mask R-CNN (a plain ViT-B with
+windowed and global attention, its simple feature pyramid, LN heads; RGB
+frames resized to 1024 and zero-padded to a square after normalising).  With
 ``--preprocess`` the port's ``Preprocessor`` (kernel K3's RGB mode on the
 card) undistorts and gamma-corrects each batch, which stays on the device.
 TF32 is switched off, so the float32 model runs in float32; ``--bf16`` runs the backbone and heads in bfloat16 with float32 parameters,
@@ -25,7 +28,8 @@ beside the kernels, to ``DIR/trace.json``.
 Usage:
     python -m apse_uav_torch.cli.track_uav --video seq.mp4 \
         --weights model_final.pkl --num_classes 4 --host_id 4 \
-        --log_file dcnn_data.csv [--write_images out/ --preprocess cam.json] [--arch c4 | --resnext 32x8d]
+        --log_file dcnn_data.csv [--write_images out/ --preprocess cam.json] \
+        [--arch c4 | --arch vitdet | --resnext 32x8d]
 """
 
 from __future__ import annotations
@@ -50,8 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="association head checkpoint (the port's format, e.g. workdir/bestAP); default: the "
                         "reference's default head (flax init under PRNGKey(1))")
     p.add_argument("--depth", type=int, default=101, choices=(50, 101))
-    p.add_argument("--arch", default="fpn", choices=("fpn", "c4"),
-                   help="fpn (mask_rcnn_R_{50,101}_FPN_3x) or c4 (mask_rcnn_R_{50,101}_C4_3x: res5 as the ROI head)")
+    p.add_argument("--arch", default="fpn", choices=("fpn", "c4", "vitdet"),
+                   help="fpn (mask_rcnn_R_{50,101}_FPN_3x), c4 (mask_rcnn_R_{50,101}_C4_3x: res5 as the ROI head) "
+                        "or vitdet (ViTDet's mask_rcnn_vitdet_b_100ep; --depth does not apply)")
     p.add_argument("--resnext", default=None, choices=("32x8d",),
                    help="a ResNeXt trunk: 32x8d = mask_rcnn_X_101_32x8d_FPN_3x (with --arch fpn --depth 101)")
     p.add_argument("--num_classes", type=int, default=4)
@@ -103,13 +108,17 @@ def _frames(args):
 def model_config(args):
     """The ModelConfig the flags ask for, by the reference CLIs' rules:
     ``--depth`` (26, 50 or 101), ``--num_classes``, ``--confidence`` and,
-    where the CLI has them, ``--arch`` (R-FPN without it), ``--resnext``
-    (X101-32x8d-FPN, only with R-FPN at depth 101), ``--bf16`` and
-    ``--no_mask``."""
+    where the CLI has them, ``--arch`` (R-FPN without it; ``vitdet`` is
+    ViTDet-B whatever the depth), ``--resnext`` (X101-32x8d-FPN, only with
+    R-FPN at depth 101), ``--bf16`` and ``--no_mask``."""
     from apse_uav_torch.dcnn import config as C
 
     arch = getattr(args, "arch", "fpn")
-    if getattr(args, "resnext", None):
+    if arch == "vitdet":
+        if getattr(args, "resnext", None):
+            raise SystemExit(f"--resnext {args.resnext} needs --arch fpn, not --arch vitdet")
+        r50 = r101 = C.mask_rcnn_vitdet_b
+    elif getattr(args, "resnext", None):
         if arch != "fpn" or args.depth != 101:
             raise SystemExit(f"--resnext {args.resnext} needs --arch fpn --depth 101 "
                              f"(mask_rcnn_X_101_32x8d_FPN_3x), not --arch {arch} --depth {args.depth}")
@@ -118,7 +127,7 @@ def model_config(args):
         r50, r101 = {"fpn": (C.mask_rcnn_r50_fpn, C.mask_rcnn_r101_fpn),
                      "c4": (C.mask_rcnn_r50_c4, C.mask_rcnn_r101_c4)}[arch]
     cfg = (r101 if args.depth == 101 else r50)(num_classes=args.num_classes)
-    if args.depth == 26:
+    if args.depth == 26 and arch != "vitdet":
         cfg = dataclasses.replace(cfg, depth=26)
     cfg = dataclasses.replace(cfg, roi=dataclasses.replace(cfg.roi, score_thresh_test=args.confidence))
     if getattr(args, "bf16", False):

@@ -4,8 +4,10 @@ The port's own copy of the JAX reference's ``dcnn/config.py``: the same
 frozen dataclasses, fields, defaults and presets, so a configuration built in
 either package reads the same.  Presets mirror the reference's detectron2
 YAML configs (Base-RCNN-FPN.yaml and its R50/R101 variants).  The port adds
-the ResNeXt fields and the X101-32x8d-FPN preset, which the reference lacks;
-their defaults are a plain ResNet's.  Configurations carry across packages
+the ResNeXt fields and the X101-32x8d-FPN preset, and the ViTDet fields
+(:class:`ViTConfig`, the head convolution counts and norms, the square pad)
+and the ViTDet-B preset, which the reference lacks; their defaults are the
+reference's R-FPN.  Configurations carry across packages
 through ``apse_uav_torch.convert.model_config`` and ``tracker_config``
 (``dataclasses.asdict`` of the JAX ones).
 """
@@ -48,6 +50,10 @@ class RPNConfig:
     iou_fg_thresh: float = 0.7
     iou_bg_thresh: float = 0.3
     smooth_l1_beta: float = 0.0
+    # 3x3 ReLU convolutions of the head before its 1x1s (detectron2
+    # StandardRPNHead conv_dims: [-1] one, named ``conv``; [-1, -1] two,
+    # named ``conv.conv0``, ``conv.conv1``).
+    num_conv: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +74,12 @@ class ROIConfig:
     num_box_fc: int = 2
     mask_conv_dim: int = 256
     num_mask_conv: int = 4
+    # FastRCNNConvFCHead conv_dims: 3x3 ReLU convolutions of the pooled
+    # channels' width before the FCs (``box_head.conv1`` ...); 0 = FCs only.
+    num_box_conv: int = 0
+    # conv_norm of the box and mask heads' 3x3 convolutions: "" (with a
+    # bias) or "LN" (bias-free, then detectron2's channel LayerNorm).
+    conv_norm: str = ""
     bbox_reg_weights: tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
     batch_size_per_image: int = 512
     positive_fraction: float = 0.25
@@ -87,9 +99,36 @@ class InputConfig:
     min_size_test: int = 800
     max_size_test: int = 1333
     pad_divisibility: int = 32
+    # Channel order the model takes: frames arrive BGR (cv2), and "RGB"
+    # flips them before the resize (detectron2's read_image(format="RGB")).
     format: str = "BGR"
     pixel_mean: tuple[float, float, float] = (103.530, 116.280, 123.675)
     pixel_std: tuple[float, float, float] = (1.0, 1.0, 1.0)
+    # detectron2's square_pad: 0 = the reference's pad of the raw pixels with
+    # 0 to pad_divisibility, boxes clipped to that padded extent; > 0 = the
+    # image normalised, then zero-padded to square_size x square_size, and
+    # boxes clipped to the resized image (ImageList.from_tensors' order).
+    square_size: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """A plain ViT trunk under its simple feature pyramid (detectron2 ``ViT``
+    and ``SimpleFeaturePyramid``, mask_rcnn_vitdet.py); ViT-B by default.
+    The rest is ViTDet's own and fixed in ``models/vit.py``: qkv with a bias,
+    LayerNorm eps 1e-6, decomposed relative positions in every block, the
+    position table of the 224 / 16 pre-training grid with a cls slot, the
+    pyramid's scales 4, 2, 1 and 1/2 with LayerNorm."""
+
+    img_size: int = 1024  # the square input; global blocks see img_size / patch_size tokens a side
+    patch_size: int = 16
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    # Blocks that attend inside window_size x window_size windows; the others attend globally.
+    window_size: int = 14
+    window_block_indexes: tuple[int, ...] = (0, 1, 3, 4, 6, 7, 9, 10)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,14 +143,17 @@ class ModelConfig:
     # num_groups * width_per_group * 2**stage wide.  1 and 64: plain ResNet.
     num_groups: int = 1
     width_per_group: int = 64
-    # "fpn" (Base-RCNN-FPN.yaml) or "c4" (Base-RCNN-C4.yaml: res4 backbone,
-    # single-level RPN, res5 ROI head).  models.build_model dispatches.
+    # "fpn" (Base-RCNN-FPN.yaml), "c4" (Base-RCNN-C4.yaml: res4 backbone,
+    # single-level RPN, res5 ROI head) or "vitdet" (mask_rcnn_vitdet.py: the
+    # ViT of ``vit`` and its simple feature pyramid in place of ResNet +
+    # FPN).  models.build_model dispatches.
     architecture: str = "fpn"
     fpn_channels: int = 256
     anchors: AnchorConfig = AnchorConfig()
     rpn: RPNConfig = RPNConfig()
     roi: ROIConfig = ROIConfig()
     input: InputConfig = InputConfig()
+    vit: ViTConfig = ViTConfig()  # read only by architecture="vitdet"
     # Numerics: convs/matmuls run in this dtype (params stay f32).
     compute_dtype: str = "float32"
     # Head (RPN/box/mask) compute dtype; "" = follow compute_dtype.  The
@@ -147,6 +189,23 @@ def mask_rcnn_x101_32x8d_fpn(num_classes: int = 80, **overrides) -> ModelConfig:
     3x3 (a C2 model) and the ImageNet pixel std of the FAIR weights."""
     cfg = mask_rcnn_r101_fpn(num_classes, stride_in_1x1=False, num_groups=32, width_per_group=8)
     cfg = dataclasses.replace(cfg, input=dataclasses.replace(cfg.input, pixel_std=(57.375, 57.120, 58.395)))
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def mask_rcnn_vitdet_b(num_classes: int = 80, **overrides) -> ModelConfig:
+    """ViTDet's mask_rcnn_vitdet_b_100ep.py over mask_rcnn_vitdet.py: ViT-B
+    (12 blocks of width 768, 12 heads, global attention in blocks 2, 5, 8
+    and 11, 14x14 windows elsewhere, decomposed relative positions) on
+    1024x1024 RGB squares, its simple feature pyramid with LN, a two-conv
+    RPN head, a 4conv1fc box head and a mask head, both with LN."""
+    cfg = ModelConfig(architecture="vitdet")
+    cfg = dataclasses.replace(
+        cfg,
+        rpn=dataclasses.replace(cfg.rpn, num_conv=2),
+        roi=dataclasses.replace(cfg.roi, num_classes=num_classes, num_box_conv=4, num_box_fc=1, conv_norm="LN"),
+        input=InputConfig(min_size_test=1024, max_size_test=1024, format="RGB", pixel_mean=(123.675, 116.28, 103.53),
+                          pixel_std=(58.395, 57.12, 57.375), square_size=1024),
+    )
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 

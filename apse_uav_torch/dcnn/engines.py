@@ -11,7 +11,10 @@ Counterpart of the JAX reference's ``dcnn/engines.py``:
 * :class:`SelectivePredictor` -- proposals from the coarsest RPN level only,
   each stage timed.
 
-The predictors build their model through ``c4.build_model`` (R-FPN or C4).
+The predictors build their model through ``c4.build_model`` (R-FPN, C4 or
+ViTDet).  A config's ``input.format`` "RGB" flips the BGR frames before the
+resize, and its ``input.square_size`` pads the normalised image with zeros
+to a square and clips boxes to the resized image, as detectron2 does.
 Every entry point runs on ``cuda`` unless the caller asks for ``cpu``; there
 is no fallback.  The float32 model runs in true float32 on the card: TF32 is off
 for matrix products and convolutions inside every call (:func:`full_fp32`).
@@ -93,11 +96,12 @@ def resize_target(orig_hw: tuple[int, int], min_size: int, max_size: int, div: i
 
 
 def reid_map(cfg: ModelConfig) -> tuple[str, int]:
-    """The backbone map the re-ID embeddings read and its channels: R-FPN's
-    ``p2``; C4, which has no pyramid, its trunk's ``res2``, of p2's stride (4)
-    and width (256), so the association head keeps its input size.  At 40 m
-    a 4.0 x 2.2 m roof is ~30 x 16 texels at stride 4, ~7 x 4 on res4."""
-    return ("p2", cfg.fpn_channels) if cfg.architecture == "fpn" else ("res2", 256)
+    """The backbone map the re-ID embeddings read and its channels: the
+    pyramid's ``p2`` (R-FPN, ViTDet); C4, which has no pyramid, its trunk's
+    ``res2``, of p2's stride (4) and width (256), so the association head
+    keeps its input size.  At 40 m a 4.0 x 2.2 m roof is ~30 x 16 texels at
+    stride 4, ~7 x 4 on res4."""
+    return ("res2", 256) if cfg.architecture == "c4" else ("p2", cfg.fpn_channels)
 
 
 class TrackPredictor:
@@ -117,8 +121,19 @@ class TrackPredictor:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.orig_hw = tuple(orig_hw)
-        self.pad_hw, self.net_hw = resize_target(self.orig_hw, cfg.input.min_size_test, cfg.input.max_size_test,
-                                                 cfg.input.pad_divisibility)
+        inp = cfg.input
+        self.pad_hw, self.net_hw = resize_target(self.orig_hw, inp.min_size_test, inp.max_size_test,
+                                                 inp.pad_divisibility)
+        # The extent the model clips boxes to: the padded input, or with a
+        # square pad (detectron2's order) the resized image.
+        self.clip_hw = self.pad_hw
+        self._square_fill = None
+        if inp.square_size:
+            if max(self.net_hw) > inp.square_size:
+                raise ValueError(f"a {self.net_hw} image does not fit the {inp.square_size} square")
+            self.pad_hw, self.clip_hw = (inp.square_size,) * 2, self.net_hw
+            self._square_fill = torch.tensor(inp.pixel_mean, dtype=torch.float32, device=self.device)
+        self._rgb = inp.format == "RGB"
         self.model = build_model(cfg).eval().requires_grad_(False)
         self.missing = load_detectron2(self.model, weights)[0] if weights is not None else []
         self.model.to(self.device)
@@ -136,11 +151,22 @@ class TrackPredictor:
         return torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
 
     def resize(self, frames_u8) -> torch.Tensor:
-        """(B, H, W, 3) u8 -> (B, pad_h, pad_w, 3) f32: resized to ``net_hw``, zero-padded."""
+        """(B, H, W, 3) u8 BGR -> (B, pad_h, pad_w, 3) f32 in the configured
+        channel order (flipped first for "RGB"): resized to ``net_hw`` and
+        zero-padded, or with a square pad filled with the pixel mean, which
+        the model's normalisation turns into exact zeros (detectron2 pads the
+        normalised image with 0)."""
         (ph, pw), (nh, nw) = self.pad_hw, self.net_hw
+        frames = self._frames(frames_u8)
+        if self._rgb:
+            frames = frames.flip(-1)
         with full_fp32():
-            x = resize_frames_matmul(self._frames(frames_u8), *self._resize_mats)
-        return F.pad(x, (0, 0, 0, pw - nw, 0, ph - nh))
+            x = resize_frames_matmul(frames, *self._resize_mats)
+        x = F.pad(x, (0, 0, 0, pw - nw, 0, ph - nh))
+        if self._square_fill is not None:
+            x[:, nh:] = self._square_fill
+            x[:, :, nw:] = self._square_fill
+        return x
 
     def postprocess(self, dets: dict) -> dict:
         """Boxes rescaled to the original frame (detectron2's
@@ -154,10 +180,10 @@ class TrackPredictor:
 
     @torch.no_grad()
     def __call__(self, frames_u8):
-        """frames (B, H, W, 3) u8 in the configured channel order -> (detections, backbone maps)."""
+        """frames (B, H, W, 3) u8 BGR -> (detections, backbone maps)."""
         with profiling.span("track.resize"):
             x = self.resize(frames_u8)
-        hw = tuple(x.shape[1:3])
+        hw = self.clip_hw
         with full_fp32():
             with profiling.span("track.features"):
                 feats = self.model.features(x)

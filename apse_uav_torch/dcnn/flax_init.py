@@ -267,8 +267,13 @@ def _flax_params(cfg) -> list[tuple[str, tuple[int, ...], str]]:
     flax layout, initialiser), the initialiser ``lecun``, ``normal:<stddev>``,
     ``zeros`` or ``ones``.  A ResNeXt config (which the JAX package lacks)
     gets grouped conv2 kernels, (3, 3, width / groups, width), drawn as flax
-    draws a convolution with ``feature_group_count``."""
+    draws a convolution with ``feature_group_count``.  A ViTDet config raises:
+    the JAX package has no ViT whose initialisation to reproduce."""
     from apse_uav_torch.dcnn.models.resnet import STAGE_BLOCKS
+
+    if cfg.architecture == "vitdet":
+        raise ValueError("architecture='vitdet': the JAX package has no ViTDet, so there is no flax "
+                         "initialisation to draw; load a detectron2 ViTDet checkpoint")
 
     out = []
 

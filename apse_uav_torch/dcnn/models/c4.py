@@ -231,6 +231,6 @@ class MaskRCNNC4(nn.Module):
 
 
 def build_model(cfg: ModelConfig) -> MaskRCNN | MaskRCNNC4:
-    """The model of ``cfg.architecture``: 'fpn' -> MaskRCNN, 'c4' -> MaskRCNNC4."""
+    """The model of ``cfg.architecture``: 'fpn' and 'vitdet' -> MaskRCNN, 'c4' -> MaskRCNNC4."""
     check_supported(cfg)
     return MaskRCNNC4(cfg) if cfg.architecture == "c4" else MaskRCNN(cfg)

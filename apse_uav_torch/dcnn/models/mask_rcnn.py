@@ -36,27 +36,36 @@ from torch import nn
 from apse_uav_torch.dcnn import flax_init
 from apse_uav_torch.dcnn.config import ModelConfig
 from apse_uav_torch.dcnn.models.resnet import ResNetFPN
-from apse_uav_torch.dcnn.models.roi_heads import (POOL_LEVELS, BoxHead, BoxPredictor, MaskHead, box_head_losses,
-                                                 box_inference, crop_resize_masks, fpn_roi_align,
-                                                 mask_head_loss, match_proposals_to_gt)
+from apse_uav_torch.dcnn.models.roi_heads import (POOL_LEVELS, BoxHead, BoxPredictor, ConvFCBoxHead, MaskHead,
+                                                 NormMaskHead, box_head_losses, box_inference, crop_resize_masks,
+                                                 fpn_roi_align, mask_head_loss, match_proposals_to_gt)
 from apse_uav_torch.dcnn.models.rpn import RPNHead, rpn_losses, select_proposals
+from apse_uav_torch.dcnn.models.vit import ViTFeaturePyramid
 from apse_uav_torch.device import resolve_device
 
 RPN_LEVELS = ("p2", "p3", "p4", "p5", "p6")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise on a ModelConfig the port does not run: an unknown architecture
-    or compute dtype, or a grouped (ResNeXt) C4, which detectron2's zoo does
-    not have."""
-    if cfg.architecture not in ("fpn", "c4"):
-        raise ValueError(f"architecture={cfg.architecture!r}: use 'fpn' or 'c4'")
+    """Raise on a ModelConfig the port does not run: an unknown architecture,
+    compute dtype or head norm, a grouped (ResNeXt) C4, which detectron2's
+    zoo does not have, or a ViTDet in bfloat16 or off its square input."""
+    if cfg.architecture not in ("fpn", "c4", "vitdet"):
+        raise ValueError(f"architecture={cfg.architecture!r}: use 'fpn', 'c4' or 'vitdet'")
     if cfg.architecture == "c4" and (cfg.num_groups, cfg.width_per_group) != (1, 64):
         raise ValueError(f"num_groups={cfg.num_groups}, width_per_group={cfg.width_per_group} with "
                          "architecture='c4': ResNeXt bottlenecks run only in 'fpn'")
     for field in ("compute_dtype", "head_compute_dtype"):
         if getattr(cfg, field) not in ("float32", "bfloat16", ""):
             raise ValueError(f"{field}={getattr(cfg, field)!r}: use 'float32' or 'bfloat16'")
+    if cfg.roi.conv_norm not in ("", "LN"):
+        raise ValueError(f"roi.conv_norm={cfg.roi.conv_norm!r}: use '' or 'LN'")
+    if cfg.architecture == "vitdet":
+        if compute_dtypes(cfg) != (torch.float32, torch.float32):
+            raise ValueError("architecture='vitdet' runs in float32 only")
+        if cfg.input.square_size != cfg.vit.img_size:
+            raise ValueError(f"architecture='vitdet' takes img_size squares: input.square_size="
+                             f"{cfg.input.square_size}, vit.img_size={cfg.vit.img_size}")
 
 
 def image_keys(key, b: int, per_image: int) -> np.ndarray:
@@ -80,16 +89,25 @@ class ROIHeads(nn.Module):
         super().__init__()
         roi = cfg.roi
         head_dtype = compute_dtypes(cfg)[1]
-        self.box_head = BoxHead(cfg.fpn_channels * roi.box_pooler_resolution**2, roi.box_fc_dim, roi.num_box_fc,
-                                head_dtype)
+        if roi.num_box_conv:
+            self.box_head = ConvFCBoxHead(cfg.fpn_channels, roi.box_pooler_resolution, roi.num_box_conv,
+                                          roi.box_fc_dim, roi.num_box_fc, roi.conv_norm)
+        else:
+            self.box_head = BoxHead(cfg.fpn_channels * roi.box_pooler_resolution**2, roi.box_fc_dim, roi.num_box_fc,
+                                    head_dtype)
         self.box_predictor = BoxPredictor(roi.box_fc_dim, roi.num_classes)
-        if cfg.mask_on:
+        if cfg.mask_on and roi.conv_norm:
+            self.mask_head = NormMaskHead(roi.num_classes, cfg.fpn_channels, roi.mask_conv_dim, roi.num_mask_conv,
+                                          roi.conv_norm)
+        elif cfg.mask_on:
             self.mask_head = MaskHead(roi.num_classes, cfg.fpn_channels, roi.mask_conv_dim, roi.num_mask_conv,
                                       head_dtype)
 
 
 class MaskRCNN(nn.Module):
-    """Mask R-CNN R-FPN for inference.
+    """Mask R-CNN R-FPN for inference; for ``architecture="vitdet"`` ViTDet
+    (:class:`~apse_uav_torch.dcnn.models.vit.ViTFeaturePyramid` in place of
+    ResNet + FPN, maps p2..p6 only).
 
     Example:
         model = MaskRCNN(uav_tracker_config()).to("cuda").eval()
@@ -102,14 +120,17 @@ class MaskRCNN(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         check_supported(cfg)
-        if cfg.architecture != "fpn":
+        if cfg.architecture == "c4":
             raise ValueError(f"architecture={cfg.architecture!r} is not MaskRCNN's: build it with c4.build_model")
         self.cfg = cfg
         dtype, head_dtype = compute_dtypes(cfg)
-        self.backbone = ResNetFPN(cfg.depth, cfg.fpn_channels, cfg.stride_in_1x1, dtype, cfg.num_groups,
-                                  cfg.width_per_group)
+        if cfg.architecture == "vitdet":
+            self.backbone = ViTFeaturePyramid(cfg.vit, cfg.fpn_channels)
+        else:
+            self.backbone = ResNetFPN(cfg.depth, cfg.fpn_channels, cfg.stride_in_1x1, dtype, cfg.num_groups,
+                                      cfg.width_per_group)
         self.proposal_generator = nn.ModuleDict(
-            {"rpn_head": RPNHead(len(cfg.anchors.aspect_ratios), cfg.fpn_channels, head_dtype)})
+            {"rpn_head": RPNHead(len(cfg.anchors.aspect_ratios), cfg.fpn_channels, head_dtype, cfg.rpn.num_conv)})
         self.roi_heads = ROIHeads(cfg)
         self.register_buffer("pixel_mean", torch.tensor(cfg.input.pixel_mean, dtype=torch.float32), persistent=False)
         self.register_buffer("pixel_std", torch.tensor(cfg.input.pixel_std, dtype=torch.float32), persistent=False)

@@ -25,6 +25,10 @@ such a grouped convolution is traced (``utils/profiling.py``): the
 convolution alone is the span ``track.gconv``, and its FLOPs count under
 ``x101.gconv_flops``, from the shapes (no sync).  A plain ResNet's blocks
 open no span and count nothing.
+
+:class:`LayerNorm2d` and :class:`ConvLN` are detectron2's ``LayerNorm``
+(over the channels of an NCHW map) and its bias-free ``Conv2d`` with
+``norm="LN"``, the layers of ViTDet's feature pyramid and heads.
 """
 
 from __future__ import annotations
@@ -90,6 +94,36 @@ class ConvNorm(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(conv(self, x))
+
+
+class LayerNorm2d(nn.Module):
+    """detectron2 ``LayerNorm``: each pixel of an NCHW map normalised over its
+    channels (mean, then the mean of the squared deviations; eps 1e-6),
+    then a per-channel affine."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        u = x.mean(1, keepdim=True)
+        s = (x - u).pow(2).mean(1, keepdim=True)
+        x = (x - u) / torch.sqrt(s + self.eps)
+        return self.weight[:, None, None] * x + self.bias[:, None, None]
+
+
+class ConvLN(nn.Conv2d):
+    """Bias-free convolution followed by :class:`LayerNorm2d` (detectron2
+    ``Conv2d`` with ``norm="LN"``), float32."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int):
+        super().__init__(in_ch, out_ch, kernel, padding=kernel // 2, bias=False)
+        self.norm = LayerNorm2d(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(F.conv2d(x, self.weight, None, self.stride, self.padding))
 
 
 class GroupedConvNorm(ConvNorm):

@@ -11,6 +11,9 @@ detectron2 names them (``roi_heads.box_head.fc1``,
 are the reference's, batched over images: each returns one loss per image.
 ``paste_masks`` pastes mask probabilities into full-image masks (the
 tracker pastes its own way, ``tracker.paste_mask_lowres``).
+ViTDet's heads are detectron2's with ``conv_dims`` and ``conv_norm``:
+:class:`ConvFCBoxHead` (convolutions before the FC trunk) and
+:class:`NormMaskHead` (LayerNorm after each convolution), float32.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from torch import nn
 
 from apse_uav_torch.dcnn.config import ROIConfig
 from apse_uav_torch.dcnn.losses import max0
-from apse_uav_torch.dcnn.models.resnet import conv
+from apse_uav_torch.dcnn.models.resnet import ConvLN, conv
 from apse_uav_torch.dcnn.models.rpn import smooth_l1, subsample_labels, take_rows
 from apse_uav_torch.dcnn.ops import apply_deltas, box_iou, clip_boxes, get_deltas
 from apse_uav_torch.dcnn.ops.nms import batched_nms, descending_order
@@ -145,6 +148,32 @@ class BoxHead(nn.Module):
         return x
 
 
+def conv_norm_layer(in_ch: int, out_ch: int, norm: str) -> nn.Conv2d:
+    """A 3x3 convolution of detectron2's ``conv_norm``: with a bias for "",
+    bias-free and followed by channel LayerNorm for "LN"."""
+    return ConvLN(in_ch, out_ch, 3) if norm == "LN" else nn.Conv2d(in_ch, out_ch, 3, padding=1)
+
+
+class ConvFCBoxHead(BoxHead):
+    """FastRCNNConvFCHead with ``conv_dims``: ``num_conv`` 3x3 ReLU
+    convolutions of the input's width (``conv1`` ...; ``norm`` as
+    :func:`conv_norm_layer`) on each box's (C, R, R) features, then
+    :class:`BoxHead`'s FC trunk on their flattened output.  Takes the pooled
+    features flat, (N, C * R * R), as :class:`BoxHead` does; float32."""
+
+    def __init__(self, channels: int, res: int, num_conv: int, fc_dim: int, num_fc: int, norm: str = ""):
+        super().__init__(channels * res * res, fc_dim, num_fc)
+        self.channels, self.res, self.num_conv = channels, res, num_conv
+        for i in range(num_conv):
+            self.add_module(f"conv{i + 1}", conv_norm_layer(channels, channels, norm))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.reshape(x.shape[0], self.channels, self.res, self.res)
+        for i in range(self.num_conv):
+            x = F.relu(getattr(self, f"conv{i + 1}")(x))
+        return super().forward(x)
+
+
 class BoxPredictor(nn.Module):
     """FastRCNNOutputLayers: class logits (N, K + 1) (background last) and
     class-specific deltas (N, K, 4)."""
@@ -181,6 +210,22 @@ class MaskHead(nn.Module):
         for i in range(self.num_conv):
             x = F.relu(conv(getattr(self, f"mask_fcn{i + 1}"), x))
         return conv(self.predictor, F.relu(conv(self.deconv, x)))
+
+
+class NormMaskHead(MaskHead):
+    """:class:`MaskHead` with detectron2's ``conv_norm``: each 3x3
+    convolution as :func:`conv_norm_layer` makes it ("LN": bias-free, then
+    channel LayerNorm), then ReLU; float32."""
+
+    def __init__(self, num_classes: int, in_ch: int = 256, conv_dim: int = 256, num_conv: int = 4, norm: str = "LN"):
+        super().__init__(num_classes, in_ch, conv_dim, num_conv)
+        for i in range(num_conv):
+            self.add_module(f"mask_fcn{i + 1}", conv_norm_layer(in_ch if i == 0 else conv_dim, conv_dim, norm))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_conv):
+            x = F.relu(getattr(self, f"mask_fcn{i + 1}")(x))
+        return self.predictor(F.relu(self.deconv(x)))
 
 
 def box_inference(scores_logits: torch.Tensor, deltas: torch.Tensor, proposals: torch.Tensor,

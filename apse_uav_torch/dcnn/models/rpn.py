@@ -70,15 +70,22 @@ def grid_anchors(hw: tuple[int, int], stride: int, size: float, aspect_ratios: t
 
 
 class RPNHead(nn.Module):
-    """Shared 3x3 convolution + objectness / delta 1x1 convolutions, the same
-    weights on every level (detectron2 StandardRPNHead names), computed in
-    ``dtype`` (the head compute dtype)."""
+    """Shared 3x3 ReLU convolutions + objectness / delta 1x1 convolutions,
+    the same weights on every level (detectron2 StandardRPNHead names: one
+    convolution is ``conv``, ``num_conv`` > 1 are ``conv.conv0`` ...),
+    computed in ``dtype`` (the head compute dtype)."""
 
-    def __init__(self, num_anchors: int, channels: int = 256, dtype: torch.dtype = torch.float32):
+    def __init__(self, num_anchors: int, channels: int = 256, dtype: torch.dtype = torch.float32, num_conv: int = 1):
         super().__init__()
         self.num_anchors = num_anchors
         self.dtype = dtype
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        if num_conv == 1:
+            self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        else:
+            self.conv = nn.Sequential()
+            for k in range(num_conv):
+                self.conv.add_module(f"conv{k}", nn.Conv2d(channels, channels, 3, padding=1))
+        self.convs = (self.conv,) if num_conv == 1 else tuple(self.conv)
         self.objectness_logits = nn.Conv2d(channels, num_anchors, 1)
         self.anchor_deltas = nn.Conv2d(channels, num_anchors * 4, 1)
 
@@ -87,7 +94,9 @@ class RPNHead(nn.Module):
         deltas[level] (B, H*W*A, 4)), anchor-minor as the grid anchors, in ``dtype``."""
         logits, deltas = {}, {}
         for name, x in feats.items():
-            t = F.relu(conv(self.conv, x.permute(0, 3, 1, 2).to(self.dtype)))
+            t = x.permute(0, 3, 1, 2).to(self.dtype)
+            for c in self.convs:
+                t = F.relu(conv(c, t))
             b, _, h, w = t.shape
             logits[name] = conv(self.objectness_logits, t).permute(0, 2, 3, 1).reshape(b, h * w * self.num_anchors)
             deltas[name] = conv(self.anchor_deltas, t).permute(0, 2, 3, 1).reshape(b, h * w * self.num_anchors, 4)

@@ -20,7 +20,10 @@ Prints one JSON line: the numbers a frame by span name, the kernels a
 frame of the whole profiled stretch (``launches_per_frame``, copies aside,
 as the benchmark's ``aruco.launches_per_frame`` counts them), the per-layer
 numbers PERF.md names for the benchmark (``metrics``; for X101 also
-``x101.gconv_ms``, the device ms a frame launched inside ``track.gconv``),
+``x101.gconv_ms``, the device ms a frame launched inside ``track.gconv``;
+for ViTDet ``vitdet.attn_ms`` and ``vitdet.global_attn_ms``, the device ms a
+frame launched inside ``track.attn_global`` and ``track.attn_window``, and
+``vitdet.attn_gflop_per_frame`` from the ``vitdet.attn_flops`` counter),
 the idle gaps by span, the share of the 500 longest gaps' seconds that a
 span covers, and the share of each root span's host time that its children
 leave uncovered.  Needs a CUDA card.
@@ -186,14 +189,15 @@ def aruco_program(cell, ctx):
 def tracker_program(cell, ctx):
     """The cell's tracker and ``Preprocessor`` on the benchmark's seeded,
     calibrated weights (R-FPN's, or X101's for the ``tracker_x101``
-    family), warmed up, and a function that runs ``track_frames`` over
-    batches ``[i, i + n)``."""
+    family, ViTDet's for ``tracker_vitdet``), warmed up, and a function that
+    runs ``track_frames`` over batches ``[i, i + n)``."""
     from apse_uav_torch.cli.track_uav import track_frames
     from apse_uav_torch.dcnn import config as pconfig
     from apse_uav_torch.dcnn.engines import RcnnTracker
     from apse_uav_torch.preproc.remap import Preprocessor
-    from benchkit import scene, weights, weights_x101
+    from benchkit import scene, weights, weights_vitdet, weights_x101
     from benchkit.refmodel import RefTracker, model_config, tracker_config
+    from benchkit.refmodel_vitdet import RefTrackerViTDet, model_config_vitdet
     from benchkit.refmodel_x101 import RefTrackerX101, model_config_x101
 
     cfg, traffic, dev = ctx.config, ctx.traffic, ctx.device
@@ -201,20 +205,25 @@ def tracker_program(cell, ctx):
     base = scene.render_video(cfg["camera"], (w, h), traffic, np.random.default_rng(ctx.seed), dev)
     variants = [[f + np.uint8(s) for f in base] for s in traffic["shifts"]]
     frame = cell.driver.frame_source(variants, traffic)
-    x101 = cfg["family"] == "tracker_x101"
+    family = cfg["family"]
     embed_in = m["fpn_channels"] * t["roi_size"] ** 2
-    if x101:
+    if family == "tracker_x101":
         ckpt, assoc = weights_x101.seeded_weights(ctx.seed, m, embed_in, t["embedding_dim"], dev)
         ref, calib = RefTrackerX101(m, t, ckpt, assoc, (h, w), cfg["camera"], dev), weights_x101
+        mcfg = model_config_x101
+    elif family == "tracker_vitdet":
+        ckpt, assoc = weights_vitdet.seeded_weights(ctx.seed, m, embed_in, t["embedding_dim"], dev)
+        ref, calib = RefTrackerViTDet(m, t, ckpt, assoc, (h, w), cfg["camera"], dev), weights_vitdet
+        mcfg = model_config_vitdet
     else:
         ckpt, assoc = weights.seeded_weights(ctx.seed, m["depth"], m["roi"]["num_classes"], embed_in,
                                              t["embedding_dim"], dev)
-        ref, calib = RefTracker(m, t, ckpt, assoc, (h, w), cfg["camera"], dev), weights
+        ref, calib, mcfg = RefTracker(m, t, ckpt, assoc, (h, w), cfg["camera"], dev), weights, model_config
     calib.calibrate_background(ckpt, ref, [f for v in variants for f in v], cfg["calibration"]["per_frame"],
                                cfg["calibration"]["batch"])
     del ref
-    tracker = RcnnTracker((model_config_x101 if x101 else model_config)(m, pconfig), tracker_config(t, pconfig),
-                          ckpt, {k: v.cpu() for k, v in assoc.items()}, (h, w), device=dev)
+    tracker = RcnnTracker(mcfg(m, pconfig), tracker_config(t, pconfig), ckpt, {k: v.cpu() for k, v in assoc.items()},
+                          (h, w), device=dev)
     pre = Preprocessor(cfg["camera"]["mtx"], cfg["camera"]["dist"], (w, h), device=dev)
 
     def loop(i, n):
@@ -269,6 +278,7 @@ def main(argv=None) -> int:
     profiling.reset_spans()
     before = profiling.counted("sync")
     pinned = profiling.counters.get("track.upload_pinned", 0)
+    attn_flops = profiling.counters.get("vitdet.attn_flops", 0)
     profiling.enable_spans(True)
     t0 = time.perf_counter()
     loop(20, n)
@@ -283,6 +293,11 @@ def main(argv=None) -> int:
            "idle": idle}
     if "track.gconv" in launches:  # X101's grouped 3x3s alone, as the benchmark's x101.gconv_ms reads them
         out["metrics"]["x101.gconv_ms"] = launches["track.gconv"]["device_ms"]
+    if "track.attn_global" in launches:  # ViTDet's attention cores, as the benchmark's vitdet.* read them
+        attn = {k: launches.get(k, {"device_ms": 0.0})["device_ms"] for k in ("track.attn_global", "track.attn_window")}
+        out["metrics"].update({"vitdet.attn_ms": sum(attn.values()), "vitdet.global_attn_ms": attn["track.attn_global"],
+                               "vitdet.attn_gflop_per_frame": (profiling.counters.get("vitdet.attn_flops", 0)
+                                                               - attn_flops) / (n * b) / 1e9})
     profiling.reset_spans()
     print(json.dumps(out), flush=True)
     return 0
