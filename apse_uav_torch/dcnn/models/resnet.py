@@ -9,8 +9,10 @@ checkpoint, key for key (``bottom_up.stem.conv1.weight``,
 Layout: the public maps are NHWC (B, H, W, C), as in the reference: views of
 the NCHW tensors the convolutions run on (cuDNN's float32 kernels take
 NCHW; ``channels_last`` input made it transpose around every convolution).
-The convolutions are library calls (cuDNN on the card); frozen batch norm is
-an explicit per-channel affine, computed as the reference does.
+The convolutions are library calls (cuDNN on the card), but for a ResNeXt
+bottleneck's grouped 3x3 in float32 inference on the card, which is a
+hand-written kernel (``csrc/gconv.cu``); frozen batch norm is an explicit
+per-channel affine, computed as the reference does.
 
 ``dtype`` is the compute dtype (the config's ``compute_dtype``): the input is
 cast to it, parameters stay float32 and are cast at use (:func:`conv`), and
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from apse_uav_torch.dcnn import cuda_gconv
 from apse_uav_torch.utils import profiling
 
 STAGE_BLOCKS = {
@@ -130,13 +133,25 @@ class GroupedConvNorm(ConvNorm):
     """A :class:`ConvNorm` in more than one group (a ResNeXt bottleneck's
     3x3): the convolution alone is the span ``track.gconv``, and each call
     counts 2 x N x C_out x H_out x W_out x (C_in / groups) x k x k FLOPs
-    under ``x101.gconv_flops``."""
+    under ``x101.gconv_flops``.
+
+    On a CUDA float32 input with no gradient to record, the convolution runs
+    the hand-written kernel (:mod:`apse_uav_torch.dcnn.cuda_gconv`, one
+    launch), which raises on a shape it does not take; otherwise (the CPU,
+    bfloat16, autograd) :func:`conv`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with profiling.span("track.gconv"):
-            y = conv(self, x)
+            if self._on_kernel(x):
+                y = cuda_gconv.conv(x, self.weight, self.stride, self.groups)
+            else:
+                y = conv(self, x)
         profiling.count("x101.gconv_flops", 2 * y.numel() * math.prod(self.weight.shape[1:]))
         return self.norm(y)
+
+    def _on_kernel(self, x: torch.Tensor) -> bool:
+        grad = torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad)
+        return x.is_cuda and x.dtype == torch.float32 and not grad
 
 
 class Bottleneck(nn.Module):

@@ -53,6 +53,14 @@ Phases (any failed check exits non-zero; no phase is skipped):
                    the kernel its shape takes (counted); one call under
                    sync-as-error; timed on a seeded problem with CUDA events
                    and the profiler beside the plain version on the card.
+                   Then X101's grouped 3x3 kernel (``csrc/gconv.cu``) at its
+                   7 distinct shapes at batch 4: within GCONV_BOUND_C x K x
+                   2**-24 x conv2d(|x|, |w|) of ``F.conv2d`` (TF32 off), two
+                   runs bit-identical, one launch a call; kernel, wrapper,
+                   cuDNN and bound ms by shape and over the 33 a frame; then
+                   one X101 ``TrackPredictor`` forward on 4 of the frames
+                   (768x1344 padded, seeded weights) counts 33 launches, one
+                   a ``track.gconv`` span: the ``kernels`` row's launches.
 6. gpu-cpu      -- the first 2 frames through the two-pass port on the CPU
                    (plain versions) against the card's run.
 7. tracker      -- the DCNN tracking path: the same 8 frames (HWC, numpy) through
@@ -307,6 +315,8 @@ REPLACES = {
     "colour_table": "preproc/pallas_remap.py:1259",
     # No Pallas kernel: the lax.while_loop of gated_auction_match (its loop at :298).
     "auction": "dcnn/hungarian.py:202",
+    # No TPU kernel: the JAX package has no ResNeXt (cuDNN's grouped convolution before).
+    "gconv": None,
 }
 # Device kernels of each wrapper, as the profiler names them (substrings).
 KERNEL_NAMES = {
@@ -318,9 +328,14 @@ KERNEL_NAMES = {
     "remap_full_rgb": ("remap_kernel",),
     "colour_table": ("table_kernel",),
     "auction": ("auction_kernel", "auction_warp_kernel"),
+    "gconv": ("gconv3x3_kernel",),
 }
 # The gated auction's sweep budget (gated_auction_match's max_sweeps default).
 AUCTION_BUDGET = 128
+# The grouped 3x3 kernel against F.conv2d: each side's float32 sum of K
+# products lies within K * 2**-24 * sum|x||w| of the exact sum, whatever its
+# order, so the two within twice that.
+GCONV_BOUND_C = 2.0
 
 
 def log(obj) -> None:
@@ -782,6 +797,109 @@ def auction_timing(problems, threshold: float) -> dict:
             "ms": round(cuda_ms(kern, iters=20, warmup=3) / n, 4),
             "kernel_ms": None if kms is None else round(kms / n, 4), "plain_ms": round(plain_ms / n, 4),
             "bound_ms": b_ms, "bound_by": max(bounds)[1]}
+
+
+def gconv_convs(hw=(768, 1344)) -> list[tuple]:
+    """X101-32x8d's 33 grouped 3x3s on one (h, w) padded input, in order:
+    (channels a group, stride, H_in, W_in), traced on the meta device."""
+    import torch
+
+    from apse_uav_torch.dcnn.models.resnet import GroupedConvNorm, ResNet
+
+    seen = []
+    with torch.device("meta"):
+        trunk = ResNet(101, stride_in_1x1=False, num_groups=32, width_per_group=8)
+        for m in trunk.modules():
+            if isinstance(m, GroupedConvNorm):
+                m.register_forward_pre_hook(
+                    lambda mod, args: seen.append((mod.in_channels // mod.groups, mod.stride[0], *args[0].shape[2:])))
+        trunk(torch.empty(1, 3, *hw))
+    return seen
+
+
+def gconv_check(frames, dev, batch: int = TRACK_BATCH, groups: int = 32) -> dict:
+    """The grouped 3x3 kernel at each distinct X101 shape at ``batch``
+    (seeded He-scaled inputs): every output within GCONV_BOUND_C x K x 2**-24
+    x conv2d(|x|, |w|) of ``F.conv2d`` (TF32 off), two runs bit-identical,
+    one launch a call; the kernel's device time, the wrapper's, cuDNN's
+    ``F.conv2d`` (the plain version and the library call it replaces) and
+    the bound, by shape and summed over the 33 convolutions a frame.  Then
+    the main path's own count: one ``TrackPredictor`` forward of X101-32x8d
+    (seeded weights) on ``batch`` of ``frames`` (4K HWC uint8 on the card,
+    padded to 768x1344 as in ``x101fpn-b4``) launches the kernel once a
+    ``track.gconv`` span, 33 times."""
+    import torch
+    import torch.nn.functional as F
+
+    from apse_uav_torch.dcnn import cuda_gconv
+    from apse_uav_torch.dcnn.config import mask_rcnn_x101_32x8d_fpn
+    from apse_uav_torch.dcnn.engines import TrackPredictor
+    from apse_uav_torch.utils import profiling
+
+    convs = gconv_convs()
+    cases = sorted(set(convs), key=convs.index)
+    g = torch.Generator().manual_seed(26)
+    rows = []
+    for width, stride, h, w in cases:
+        c = groups * width
+        x = torch.randn(batch, c, h, w, generator=g).to(dev)
+        wt = (torch.randn(c, width, 3, 3, generator=g) * (2.0 / (9 * width)) ** 0.5).to(dev)
+
+        def kern():
+            return cuda_gconv.conv(x, wt, stride, groups)
+
+        def lib():
+            return F.conv2d(x, wt, None, stride, 1, 1, groups)
+
+        profiling.reset_counters()
+        y, again = kern(), kern()
+        torch.cuda.synchronize()
+        launches = profiling.counted("launch").get(cuda_gconv.NAME, 0)
+        ref = lib()
+        mag = F.conv2d(x.abs().double(), wt.abs().double(), None, stride, 1, 1, groups)
+        gap = (y.double() - ref.double()).abs()
+        ratio = float((gap / (GCONV_BOUND_C * 9 * width * 2.0 ** -24 * mag)).max())
+        if launches != 2 or not torch.equal(y, again) or not ratio <= 1.0:
+            raise SmokeFailure(f"gconv w{width} s{stride} {h}x{w}: launches {launches}, identical "
+                               f"{torch.equal(y, again)}, gap / bound {ratio}")
+        b_ms, b_by = bound(4 * (x.numel() + y.numel() + wt.numel()), 2 * y.numel() * 9 * width)
+        rows.append({"width": width, "stride": stride, "in_hw": [h, w], "convs": convs.count((width, stride, h, w)),
+                     "max_abs_err": float(gap.max()), "gap_over_bound": round(ratio, 4),
+                     "kernel_ms": kernel_ms(kern, KERNEL_NAMES["gconv"]), "ms": round(cuda_ms(kern), 4),
+                     "library_ms": round(cuda_ms(lib), 4), "bound_ms": round(b_ms, 5), "bound_by": b_by})
+        del x, wt, y, again, ref, mag, gap
+    if any(r["kernel_ms"] is None for r in rows):
+        raise SmokeFailure("gconv: the profiler caught no gconv3x3_kernel")
+
+    torch.manual_seed(26)
+    pred = TrackPredictor(mask_rcnn_x101_32x8d_fpn(4), None, tuple(frames.shape[1:3]), device=dev)
+    if tuple(pred.pad_hw) != (768, 1344):
+        raise SmokeFailure(f"gconv: X101 pads {tuple(frames.shape[1:3])} to {pred.pad_hw}, not 768x1344")
+    profiling.reset_counters()
+    profiling.reset_spans()
+    profiling.enable_spans(True)
+    try:
+        pred(frames[:batch])
+        torch.cuda.synchronize()
+    finally:
+        profiling.enable_spans(False)
+    spans = sum(1 for s in profiling.spans() if s.name == "track.gconv")
+    profiling.reset_spans()
+    forward_launches = profiling.counted("launch").get(cuda_gconv.NAME, 0)
+    del pred
+    if not forward_launches == spans == len(convs) == 33:
+        raise SmokeFailure(f"gconv: an X101 forward launched the kernel {forward_launches} times over {spans} "
+                           f"track.gconv spans; {len(convs)} grouped 3x3s")
+    per_frame = {k: round(sum(r[k] * r["convs"] for r in rows) / batch, 4)
+                 for k in ("kernel_ms", "ms", "library_ms", "bound_ms")}
+    res = {"batch": batch, "convs": len(convs), "forward_launches": forward_launches, "forward_spans": spans,
+           "shapes": rows, "per_frame": per_frame,
+           # From the CUDA-event times: the profiler's sum has read low at one shape.
+           "roofline_pct": round(100 * per_frame["bound_ms"] / per_frame["ms"], 2),
+           "bound_by": "/".join(sorted({r["bound_by"] for r in rows})),
+           "max_abs_err": max(r["max_abs_err"] for r in rows)}
+    log({"phase": "gconv", **res})
+    return res
 
 
 def calibrate_background(ckpt: dict, cfg, pre, frames_np, dev, per_frame: int = 10) -> dict:
@@ -2845,6 +2963,11 @@ def main(argv=None) -> int:
     log({"phase": "auction", **a5, "block_kernel": a5_block, "timing_random_32x32": auction_timing(
         [(torch.from_numpy(c5).to(dev), torch.from_numpy(rv5).to(dev), torch.from_numpy(cv5).to(dev))], 0.6),
         "card": card})
+    g5 = gconv_check(frames_hwc, dev)
+    kernels.append({"name": "gconv", "route": "cuda", "source": "apse_uav_torch/csrc/gconv.cu",
+                    "replaces": REPLACES["gconv"], "launches": g5["forward_launches"], "max_abs_err": g5["max_abs_err"],
+                    **{k: g5["per_frame"][k] for k in ("ms", "kernel_ms", "bound_ms", "library_ms")},
+                    "bound_by": g5["bound_by"], "plain_ms": g5["per_frame"]["library_ms"]})
 
     # -- 6. GPU against CPU, two-pass ---------------------------------------------
     cpipe = ArucoPipeline(mtx, dist, (W, H), cfg, device="cpu")
